@@ -1,0 +1,3 @@
+from raven_tpu_torch.cli import main
+
+raise SystemExit(main())
