@@ -7,8 +7,8 @@ Needs one CUDA card (it exits non-zero without one, and outside a checkout
 of the repository) and the CUDA toolkit's nvcc.  Phases, each fatal on
 failure:
 
-  1. the card, the versions, the kernel builds (nvcc for sm_90a, started
-     together, plus the host C++ library);
+  1. the card, the versions, the builds (the host C++ library, then K1
+     with nvcc for sm_90a);
   2. kernel K1 (segment sketch, csrc/sketch.cu) against its plain torch
      version on the card, bit for bit, at (k, w) = (15, 5) and (11, 3), on
      a chunk of real segment rows [8192, 2048] and a ragged row count;
@@ -21,11 +21,12 @@ failure:
      the ops that take the most device time;
   4. the main path: `raven_tpu_torch.cli.main([reads, "-p", "0", ...])` on
      a 1 Mb genome at 30x with indels, which must give one contig of at
-     least 0.97 of the genome with every overlap index built by K1;
-  5. the layout n-body on the card, through the assemble stage
-     remove_long_edges on a 601-node junction component: the phase 4
-     graph has no junction component, so its layout lays out nothing, and
-     only components of 512 nodes or more reach the device n-body;
+     least 0.97 of the genome with every overlap index built by K1; then
+     again on a 1 Mb genome with a repeat family, whose junction component
+     (512 nodes or more) must send the layout n-body to the card;
+  5. the layout n-body against the float64 host loop on the card, and
+     through the assemble stage remove_long_edges on a 601-node junction
+     component built by hand;
   6. a `kernels` JSON line, the card's name and power limit, and the last
      line {"ok": true, "device": {...}}.
 """
@@ -46,10 +47,11 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 K, W, FREQ = 15, 5, 0.001
 SEG_ROWS = 8192  # one sketch chunk of the device index build
-# H100 SXM: HBM3 3.35 TB/s (NVIDIA data sheet); 32-bit integer ALU ops:
-# 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost (Hopper white paper)
+# H100 SXM: HBM3 3.35 TB/s (NVIDIA data sheet); integer instructions: 4
+# schedulers x 32 lanes issued per SM per clock x 132 SMs x 1.98 GHz boost
+# (Hopper white paper), the ALU and FMA (IMAD) pipes together
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
+INT_ISSUE_PER_S = 4 * 32 * 132 * 1.98e9
 
 
 class SmokeFailure(Exception):
@@ -111,16 +113,18 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
 
 
 def sketch_bound(S: int, L: int, w: int) -> tuple[float, str, dict]:
-    """Least time for K1's work on these inputs: bytes each read or
-    written once (codes u8, lengths i32, hash i32, strand u8, keep u8)
-    over HBM bandwidth, against the integer operations of the rolling
-    formulation (6 for the two k-mer codes, 4 for canonical / strand /
-    ambiguity, 23 for the hash mix, 2(w-1) for the two window passes and
-    4 compares and selects per position) over the int32 ALU rate."""
+    """Least time for K1's work on these inputs: the larger of the bytes
+    each read or written once (codes u8, lengths i32, hash i32, strand u8,
+    keep u8) over HBM bandwidth, and the fewest integer instructions the
+    function needs per position (5 for the rolling forward and reverse
+    k-mer codes, 3 for the canonical pick, strand and ambiguity, 2 for the
+    window sentinel, 14 for the hash mix with each multiply-add one IMAD,
+    2(w-1) for the two window passes, 2 for the keep flag) over the card's
+    instruction issue rate."""
     nbytes = S * L * (1 + 4 + 1 + 1) + S * 4
-    ops = S * L * (6 + 4 + 23 + 2 * (w - 1) + 4)
+    ops = S * L * (5 + 3 + 2 + 14 + 2 * (w - 1) + 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / INT_ISSUE_PER_S * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, {"bytes": nbytes, "int_ops": ops,
                                      "bytes_ms": t_bytes, "ops_ms": t_ops}
@@ -163,10 +167,13 @@ def phase_sketch(readset, device):
             log(
                 f"K1 k={k} w={w} S={S} L=2048: bit-equal, max_abs_err {err}; "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{bound:.4f} ms by {by} ({parts['bytes']} B at "
-                f"{HBM_BYTES_PER_S:.3g} B/s = {parts['bytes_ms']:.4f} ms; "
-                f"{parts['int_ops']} int ops at {INT32_OPS_PER_S:.4g}/s = "
-                f"{parts['ops_ms']:.4f} ms)"
+                f"{bound:.4f} ms by {by}"
+            )
+            log(
+                f"  bound parts: {parts['bytes']} B at {HBM_BYTES_PER_S:.3g} "
+                f"B/s = {parts['bytes_ms']:.4f} ms; {parts['int_ops']} integer "
+                f"instructions at {INT_ISSUE_PER_S:.4g}/s = "
+                f"{parts['ops_ms']:.4f} ms"
             )
             if (k, w) == (15, 5) and S == rows:
                 main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -276,7 +283,29 @@ def phase_overlap(readset, device, child, child_out):
             "launches": launches}
 
 
-def phase_cli(device, work_dir, genome_size=1_000_000):
+def make_genome(rng, size: int, repeat: tuple | None = None) -> np.ndarray:
+    """A random genome; `repeat` = (length, copies, divergence) plants a
+    repeat family: copies of one element spread evenly over the genome,
+    each in a random orientation with its own substitutions."""
+    genome = rng.integers(0, 4, size).astype(np.uint8)
+    if repeat is not None:
+        length, copies, divergence = repeat
+        element = rng.integers(0, 4, length).astype(np.uint8)
+        for s in np.linspace(size * 0.05, size * 0.95, copies).astype(int):
+            r = element.copy()
+            m = rng.random(length) < divergence
+            r[m] = (r[m] + rng.integers(1, 4, m.sum())) % 4
+            if rng.random() < 0.5:
+                r = r[::-1] ^ 3
+            genome[s : s + length] = r
+    return genome
+
+
+def cli_run(device, work_dir, genome_size, repeat=None) -> dict:
+    """One `raven_tpu_torch.cli.main([reads, "-p", "0", ...])` run on reads
+    simulated at 30x (mean 9 kb, 2.5% substitutions, 1.25% insertions,
+    1.25% deletions, seed 77); every count starts at 0 right before it and
+    is read right after."""
     from raven_tpu_torch import cli
     from raven_tpu_torch.graph import layout
     from raven_tpu_torch.ops import sketch_cuda
@@ -284,7 +313,7 @@ def phase_cli(device, work_dir, genome_size=1_000_000):
     from raven_tpu_torch.utils.synth import simulate_reads
 
     rng = np.random.default_rng(77)
-    genome = rng.integers(0, 4, genome_size).astype(np.uint8)
+    genome = make_genome(rng, genome_size, repeat)
     reads = simulate_reads(rng, genome, 30, 9000, 0.025, 0.0125, 0.0125)
     path = os.path.join(work_dir, "reads.fa")
     lut = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -294,7 +323,6 @@ def phase_cli(device, work_dir, genome_size=1_000_000):
     argv = [path, "-p", "0", "--disable-checkpoints", "--device", device]
     timings: dict = {}
     out = io.StringIO()
-    # the main path: every count starts at 0 here and is read right after
     sketch_cuda.LAUNCHES = 0
     layout.DEVICE_RUNS = 0
     MinimizerIndex.host_declines = 0
@@ -302,28 +330,50 @@ def phase_cli(device, work_dir, genome_size=1_000_000):
     with contextlib.redirect_stdout(out):
         rc = cli.main(argv, timings=timings)
     wall = time.perf_counter() - t0
-    launches = sketch_cuda.LAUNCHES
-    layout_runs = layout.DEVICE_RUNS
-    declines = MinimizerIndex.host_declines
+    run = {"launches": sketch_cuda.LAUNCHES, "layout_runs": layout.DEVICE_RUNS,
+           "declines": MinimizerIndex.host_declines, "wall_s": wall, **timings}
     require(rc == 0, f"cli exited {rc}")
     lines = out.getvalue().split("\n")
-    names = [ln for ln in lines if ln.startswith(">")]
     seqs = [ln for ln in lines if ln and not ln.startswith(">")]
-    lengths = [len(s) for s in seqs]
+    require(len(seqs) == sum(ln.startswith(">") for ln in lines),
+            "contig FASTA is malformed")
+    require(all(set(s) <= set("ACGT") for s in seqs),
+            "a contig holds non-ACGT symbols")
+    run["lengths"] = [len(s) for s in seqs]
     log(
         f"cli -p 0 ({len(reads)} reads, {sum(r.size for r in reads)} bases, "
-        f"{genome_size} bp genome): construct {timings['construct_s']:.3f} s, "
-        f"assemble {timings['assemble_s']:.3f} s, wall {wall:.3f} s; "
-        f"contigs {len(names)} {lengths}; K1 launches {launches}; layout "
-        f"n-body runs {layout_runs}; host declines {declines}"
+        f"{genome_size} bp genome, repeat family {repeat}): construct "
+        f"{timings['construct_s']:.3f} s, assemble {timings['assemble_s']:.3f} "
+        f"s, wall {wall:.3f} s; contigs {len(seqs)} {run['lengths']}; K1 "
+        f"launches {run['launches']}; layout n-body runs {run['layout_runs']}; "
+        f"host declines {run['declines']}"
     )
-    require(len(names) == 1, f"expected 1 contig, got {len(names)}")
+    require(run["launches"] > 0, "the cli run launched K1 no time")
+    require(run["declines"] == 0, f"{run['declines']} device-path declines")
+    return run
+
+
+def phase_cli(device, work_dir, genome_size=1_000_000):
+    """The main path twice: on a repeat-free genome, which must assemble
+    into one contig; and on one with a repeat family (8 copies of an 11 kb
+    element, 2% apart, longer than most reads), whose collapsed copies
+    leave a junction component of 512 nodes or more, so the assemble
+    stage's layout runs the n-body on the card.  Such repeats cannot be
+    resolved from these reads, so that run must give at most 9 contigs
+    that together hold 0.97-1.1 x the genome."""
+    main = cli_run(device, work_dir, genome_size)
+    lengths = main["lengths"]
+    require(len(lengths) == 1, f"expected 1 contig, got {len(lengths)}")
     require(lengths[0] >= 0.97 * genome_size,
             f"contig {lengths[0]} < 0.97 x {genome_size}")
-    require(set(seqs[0]) <= set("ACGT"), "contig holds non-ACGT symbols")
-    require(launches > 0, "the main path launched K1 no time")
-    require(declines == 0, f"{declines} device-path declines on the main path")
-    return {"launches": launches, "layout_runs": layout_runs, **timings}
+    rep = cli_run(device, work_dir, genome_size, repeat=(11_000, 8, 0.02))
+    require(rep["layout_runs"] > 0,
+            "the layout n-body did not run on the card in the cli run")
+    total = sum(rep["lengths"])
+    require(len(rep["lengths"]) <= 9, f"{len(rep['lengths'])} contigs")
+    require(0.97 * genome_size <= total <= 1.1 * genome_size,
+            f"contigs hold {total} bp of a {genome_size} bp genome")
+    return main, rep
 
 
 def phase_layout(device):
@@ -396,11 +446,11 @@ def run() -> dict:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}")
 
-    # builds and the host child start before this process touches CUDA
+    # the host library first (the host child needs it), then the host
+    # child, which runs while nvcc builds K1; neither touches CUDA
     t0 = time.perf_counter()
-    pending = csrc.start_builds(["sketch"])
     native.build()
-    t_native = time.perf_counter() - t0
+    log(f"host C++ library build: {time.perf_counter() - t0:.2f} s")
     work = os.path.join(REPO, "build", "smoke")
     os.makedirs(work, exist_ok=True)
     child_out = os.path.join(work, "host_overlap.json")
@@ -411,13 +461,10 @@ def run() -> dict:
         cwd=REPO,
     )
     try:
+        csrc.build("sketch")
+        log(f"nvcc sketch.cu: {csrc.BUILD_SECONDS.get('sketch', 0.0):.2f} s "
+            "(0 when build/cuda/libsketch.so was up to date)")
         readset = synth_reads(genome, cov, 9000, 0.10)
-        csrc.finish_builds(pending)
-        t_build = time.perf_counter() - t0
-        for name, rec in csrc.BUILD_LOG.items():
-            log(f"nvcc {name}.cu: {rec['seconds']:.2f} s\n{rec['ptxas']}")
-        log(f"builds: host C++ library {t_native:.2f} s, all kernels ready "
-            f"after {t_build:.2f} s")
 
         device = "cuda"
         k1 = phase_sketch(readset, device)
@@ -427,7 +474,7 @@ def run() -> dict:
             child.kill()
             child.wait()
     del readset
-    main_path = phase_cli(device, work)
+    main_path, repeat_path = phase_cli(device, work)
     lay = phase_layout(device)
 
     kernels = [{
@@ -437,6 +484,7 @@ def run() -> dict:
         "replaces": "raven_tpu/ops/pallas_sketch.py:125",
         "launches": main_path["launches"],
         "launches_overlap_stage": ov["launches"],
+        "launches_repeat_cli": repeat_path["launches"],
         "equal": True,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],

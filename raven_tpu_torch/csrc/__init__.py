@@ -1,11 +1,10 @@
 """CUDA kernel sources and their builder.
 
-Each `<name>.cu` here is compiled by nvcc for sm_90a into its own shared
-library with a plain C interface (`build/cuda/lib<name>.so` at the root of
-the checkout) and loaded with ctypes.  A library is built at first use, or
-ahead of time with `start_builds` (one nvcc process per source, all running
-together), and rebuilt when its source is newer.  Any failure to find nvcc,
-compile or load raises: there is no fallback to another implementation.
+Each `<name>.cu` here is compiled by nvcc for sm_90a into a shared library
+with a plain C interface (`build/cuda/lib<name>.so` at the root of the
+checkout) and loaded with ctypes.  `load` builds a library at first use, and
+again when its source is newer than it.  Any failure to find nvcc, compile
+or load raises: there is no fallback to another implementation.
 """
 
 from __future__ import annotations
@@ -20,13 +19,13 @@ _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(os.path.dirname(_SRC_DIR))
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
 ]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-# per library: seconds its build took in this process and nvcc's -Xptxas -v
-# report (registers, shared memory, spills); empty when it was up to date
-BUILD_LOG: dict[str, dict] = {}
+# seconds each library's nvcc build took in this process (absent when the
+# library was already up to date)
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def build_dir() -> str:
@@ -50,54 +49,24 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _stale(name: str) -> bool:
-    so = _lib_path(name)
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(
-        source(name)
-    )
-
-
-def start_builds(names) -> dict:
-    """Start one nvcc per stale library; returns the pending builds for
-    `finish_builds`."""
-    pending = {}
+def build(name: str) -> None:
+    """Compile `<name>.cu` unless its library is newer than the source."""
+    so, src = _lib_path(name), source(name)
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        return
     os.makedirs(build_dir(), exist_ok=True)
-    for name in names:
-        if not _stale(name):
-            continue
-        tmp = f"{_lib_path(name)}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source(name)]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    tmp = f"{so}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed on {src} ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
         )
-        pending[name] = (proc, tmp, time.perf_counter())
-    return pending
-
-
-def finish_builds(pending: dict, timeout: float = 600.0) -> None:
-    """Wait for every started build; raises on the first that failed (the
-    others are still waited for, so no nvcc outlives the call)."""
-    errors = []
-    for name, (proc, tmp, t0) in pending.items():
-        try:
-            out, _ = proc.communicate(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate()
-            errors.append(f"{name}: nvcc timed out after {timeout}s")
-            continue
-        if proc.returncode != 0:
-            errors.append(f"{name}: nvcc failed ({proc.returncode}):\n{out}")
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            continue
-        os.replace(tmp, _lib_path(name))
-        BUILD_LOG[name] = {
-            "seconds": time.perf_counter() - t0,
-            "ptxas": out.strip(),
-        }
-    if errors:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    os.replace(tmp, so)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -105,7 +74,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    finish_builds(start_builds([name]))
+    build(name)
     lib = ctypes.CDLL(_lib_path(name))
     lib.raven_cuda_error_string.restype = ctypes.c_char_p
     lib.raven_cuda_error_string.argtypes = [ctypes.c_int]

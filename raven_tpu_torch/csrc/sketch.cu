@@ -11,21 +11,21 @@
 // window minima, which together give the keep flags.  Positions p >= n
 // carry hash 0, strand 0, keep 0.
 //
-// What bounds it on an H100: bytes and 32-bit integer operations about
-// equally.  Per position the function reads one code byte and writes a
-// 4-byte hash plus two flag bytes (7 bytes); a rolling formulation needs
-// some 45 integer operations for the same position (k-mer update, canonical
-// pick, the 23-operation mix, the two window passes), about 6.4 operations
-// per byte against the card's ~5 (16.7 T int32 ops/s over 3.35 TB/s).  The
-// design touches device memory once per byte: one block per segment row
-// stages the row's codes in shared memory, keeps the window hashes and
-// window minima in shared memory between the two dependent sliding passes,
-// and writes the three outputs with neighbouring threads on neighbouring
-// addresses.  It is not yet frugal with operations: each thread rebuilds
-// its k-mer from k codes instead of rolling it, which costs ~6k extra
-// operations per position and makes this first version operations-bound.
-// Rows are independent, so the grid is exactly S blocks and a ragged S
-// needs no padding.
+// What bounds it on an H100: memory bytes.  Per position the function
+// reads one code byte and writes a 4-byte hash plus two flag bytes (7
+// bytes); at the fewest it needs some 34 integer instructions for the same
+// position (rolling k-mer updates, canonical pick and flags, the mix at 14
+// with its multiply-adds as one IMAD each, the two window passes), about 5
+// per byte against the card's ~10 (33.5 T instructions/s issued over
+// 3.35 TB/s).  The design touches device memory once per byte: one block
+// per segment row stages the row's codes in shared memory, keeps the window
+// hashes and window minima in shared memory between the two dependent
+// sliding passes, and writes the three outputs with neighbouring threads on
+// neighbouring addresses.  It is not yet frugal with instructions: each
+// thread rebuilds its k-mer from k codes instead of rolling it, some 4k
+// more per position, which puts this first version's own instruction count
+// above its byte time.  Rows are independent, so the grid is exactly S
+// blocks and a ragged S needs no padding.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C
 // interface (see raven_tpu_torch/csrc/__init__.py); the launcher returns
