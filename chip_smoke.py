@@ -51,7 +51,7 @@ SEG_ROWS = 8192  # one sketch chunk of the device index build
 # schedulers x 32 lanes issued per SM per clock x 132 SMs x 1.98 GHz boost
 # (Hopper white paper), the ALU and FMA (IMAD) pipes together
 HBM_BYTES_PER_S = 3.35e12
-INT_ISSUE_PER_S = 4 * 32 * 132 * 1.98e9
+INT_INSTR_PER_S = 4 * 32 * 132 * 1.98e9
 
 
 class SmokeFailure(Exception):
@@ -124,7 +124,7 @@ def sketch_bound(S: int, L: int, w: int) -> tuple[float, str, dict]:
     nbytes = S * L * (1 + 4 + 1 + 1) + S * 4
     ops = S * L * (5 + 3 + 2 + 14 + 2 * (w - 1) + 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT_ISSUE_PER_S * 1e3
+    t_ops = ops / INT_INSTR_PER_S * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, {"bytes": nbytes, "int_ops": ops,
                                      "bytes_ms": t_bytes, "ops_ms": t_ops}
@@ -172,7 +172,7 @@ def phase_sketch(readset, device):
             log(
                 f"  bound parts: {parts['bytes']} B at {HBM_BYTES_PER_S:.3g} "
                 f"B/s = {parts['bytes_ms']:.4f} ms; {parts['int_ops']} integer "
-                f"instructions at {INT_ISSUE_PER_S:.4g}/s = "
+                f"instructions at {INT_INSTR_PER_S:.4g}/s = "
                 f"{parts['ops_ms']:.4f} ms"
             )
             if (k, w) == (15, 5) and S == rows:
