@@ -8,7 +8,7 @@ of the repository) and the CUDA toolkit's nvcc.  Phases, each fatal on
 failure:
 
   1. the card, the versions, the builds (the host C++ library, then K1
-     with nvcc for sm_90a);
+     and K2 with nvcc for sm_90a, one nvcc per source, started together);
   2. kernel K1 (segment sketch, csrc/sketch.cu) against its plain torch
      version on the card, bit for bit, at (k, w) = (15, 5) and (11, 3), on
      a chunk of real segment rows [8192, 2048] and a ragged row count;
@@ -27,7 +27,19 @@ failure:
   5. the layout n-body against the float64 host loop on the card, and
      through the assemble stage remove_long_edges on a 601-node junction
      component built by hand;
-  6. a `kernels` JSON line, the card's name and power limit, and the last
+  6. kernel K2 (window-consensus votes, csrc/consensus.cu) against its
+     plain torch version on the card, bit for bit, on the first chunk of
+     bench_polish.py's window bank (512 windows x 30 fragments) laid out
+     as the polisher lays it out: [B, T, Q] = [2048, 640, 768], a ragged
+     B = 1237, and T = Q = 256; median times over CUDA events beside the
+     bound;
+  7. the main path with polish: `raven_tpu_torch.cli.main([reads, "-p",
+     "2", "--device-poa-batches", "8", "-t", <cores>, ...])` on phase 4's
+     1 Mb x 30x reads, which must give one contig of at least 0.97 of the
+     genome at an edit-distance rate of 0.05% or less against the true
+     genome (the synthetic golden gate), with K2 and the crossing DP run
+     on the card;
+  8. a `kernels` JSON line, the card's name and power limit, and the last
      line {"ok": true, "device": {...}}.
 """
 
@@ -52,6 +64,12 @@ SEG_ROWS = 8192  # one sketch chunk of the device index build
 # (Hopper white paper), the ALU and FMA (IMAD) pipes together
 HBM_BYTES_PER_S = 3.35e12
 INT_INSTR_PER_S = 4 * 32 * 132 * 1.98e9
+# K2's forward needs at least 14 integer instructions per DP cell: the
+# substitution score (compare, select), the diag and up adds, their max
+# and move bit, the closure's subtract, running max, clamp and add, the
+# left compare and select, and the 2-bit move pack
+K2_INSTR_PER_CELL = 14
+ED_RATE_CEILING = 0.0005  # tests/test_synthetic_golden.py
 
 
 class SmokeFailure(Exception):
@@ -128,6 +146,28 @@ def sketch_bound(S: int, L: int, w: int) -> tuple[float, str, dict]:
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, {"bytes": nbytes, "int_ops": ops,
                                      "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
+def votes_bound(tlens, qlens, T: int, Q: int) -> tuple[float, str, dict]:
+    """Least time for K2's work on these inputs: the larger of the bytes
+    each read or written once (cw, frags, wts, the two lengths in; col_sym,
+    col_w, ins_b, ins_w out; all int32) over HBM bandwidth, and
+    K2_INSTR_PER_CELL integer instructions per DP cell this data needs
+    (tlen x qlen per fragment: no output depends on another cell) over the
+    card's instruction issue rate."""
+    import torch
+
+    B = int(tlens.numel())
+    cells = int((tlens.to(torch.int64) * qlens.to(torch.int64)).sum())
+    nbytes = 4 * (B * T + 2 * B * Q + 2 * B) + 4 * (2 * B * T + 2 * B * (T + 1))
+    ops = cells * K2_INSTR_PER_CELL
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_INSTR_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, {
+        "bytes": nbytes, "int_ops": ops, "cells": cells,
+        "padded_cells": B * T * Q, "bytes_ms": t_bytes, "ops_ms": t_ops,
+    }
 
 
 # ------------------------------------------------------------------ phases
@@ -301,13 +341,15 @@ def make_genome(rng, size: int, repeat: tuple | None = None) -> np.ndarray:
     return genome
 
 
-def cli_run(device, work_dir, genome_size, repeat=None) -> dict:
-    """One `raven_tpu_torch.cli.main([reads, "-p", "0", ...])` run on reads
+def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> dict:
+    """One `raven_tpu_torch.cli.main([reads, *flags, ...])` run on reads
     simulated at 30x (mean 9 kb, 2.5% substitutions, 1.25% insertions,
     1.25% deletions, seed 77); every count starts at 0 right before it and
     is read right after."""
     from raven_tpu_torch import cli
     from raven_tpu_torch.graph import layout
+    from raven_tpu_torch.io.readset import encode
+    from raven_tpu_torch.ops import consensus_cuda, dp_device
     from raven_tpu_torch.ops import sketch_cuda
     from raven_tpu_torch.overlap.engine import MinimizerIndex
     from raven_tpu_torch.utils.synth import simulate_reads
@@ -320,10 +362,12 @@ def cli_run(device, work_dir, genome_size, repeat=None) -> dict:
     with open(path, "wb") as fh:
         for i, r in enumerate(reads):
             fh.write(b">r%d\n" % i + lut[r].tobytes() + b"\n")
-    argv = [path, "-p", "0", "--disable-checkpoints", "--device", device]
+    argv = [path, *flags, "--disable-checkpoints", "--device", device]
     timings: dict = {}
     out = io.StringIO()
     sketch_cuda.LAUNCHES = 0
+    consensus_cuda.LAUNCHES = 0
+    dp_device.DEVICE_RUNS = 0
     layout.DEVICE_RUNS = 0
     MinimizerIndex.host_declines = 0
     t0 = time.perf_counter()
@@ -331,6 +375,8 @@ def cli_run(device, work_dir, genome_size, repeat=None) -> dict:
         rc = cli.main(argv, timings=timings)
     wall = time.perf_counter() - t0
     run = {"launches": sketch_cuda.LAUNCHES, "layout_runs": layout.DEVICE_RUNS,
+           "k2_launches": consensus_cuda.LAUNCHES,
+           "dp_runs": dp_device.DEVICE_RUNS,
            "declines": MinimizerIndex.host_declines, "wall_s": wall, **timings}
     require(rc == 0, f"cli exited {rc}")
     lines = out.getvalue().split("\n")
@@ -340,13 +386,15 @@ def cli_run(device, work_dir, genome_size, repeat=None) -> dict:
     require(all(set(s) <= set("ACGT") for s in seqs),
             "a contig holds non-ACGT symbols")
     run["lengths"] = [len(s) for s in seqs]
+    run["contigs"] = [encode(s) for s in seqs]  # base codes 0-3
+    run["genome"] = genome
     log(
-        f"cli -p 0 ({len(reads)} reads, {sum(r.size for r in reads)} bases, "
-        f"{genome_size} bp genome, repeat family {repeat}): construct "
+        f"cli {' '.join(flags)} ({len(reads)} reads, {sum(r.size for r in reads)} "
+        f"bases, {genome_size} bp genome, repeat family {repeat}): construct "
         f"{timings['construct_s']:.3f} s, assemble {timings['assemble_s']:.3f} "
-        f"s, wall {wall:.3f} s; contigs {len(seqs)} {run['lengths']}; K1 "
-        f"launches {run['launches']}; layout n-body runs {run['layout_runs']}; "
-        f"host declines {run['declines']}"
+        f"s, polish {timings['polish_s']:.3f} s, wall {wall:.3f} s; contigs "
+        f"{len(seqs)} {run['lengths']}; K1 launches {run['launches']}; layout "
+        f"n-body runs {run['layout_runs']}; host declines {run['declines']}"
     )
     require(run["launches"] > 0, "the cli run launched K1 no time")
     require(run["declines"] == 0, f"{run['declines']} device-path declines")
@@ -426,6 +474,197 @@ def phase_layout(device):
     return {"layout_runs": runs, "nbody_100_s": t_nbody}
 
 
+def consensus_chunk(n_rows: int = 2048, t_pad: int = 640, q_pad: int = 768):
+    """The first `n_rows` fragment rows of bench_polish.py's window bank
+    (make_windows(512, 500, 30), seed 21) as device_window_consensus lays
+    out its first iteration: each row's window backbone (the working
+    consensus) padded to t_pad with -1, the fragment to q_pad with -1, its
+    weights with 0.  Returns numpy (cw, tlens, frags, qlens, wts) and the
+    bank's row count."""
+    from raven_tpu_torch.utils.synth import make_windows
+
+    windows, _ = make_windows(512, 500, 30, np.random.default_rng(21))
+    total = sum(len(f) for _, f, _ in windows)
+    cw = np.full((n_rows, t_pad), -1, np.int32)
+    tl = np.zeros(n_rows, np.int32)
+    fr = np.full((n_rows, q_pad), -1, np.int32)
+    ql = np.zeros(n_rows, np.int32)
+    wt = np.zeros((n_rows, q_pad), np.int32)
+    row = 0
+    for backbone, frags, wts in windows:
+        for f, w in zip(frags, wts):
+            if row == n_rows:
+                return (cw, tl, fr, ql, wt), total
+            b = backbone[:t_pad]
+            cw[row, : b.size] = b
+            tl[row] = b.size
+            f, w = f[:q_pad], w[:q_pad]
+            fr[row, : f.size] = f
+            ql[row] = f.size
+            wt[row, : w.size] = w
+            row += 1
+    return (cw, tl, fr, ql, wt), total
+
+
+def phase_votes(device):
+    """K2 vs votes_primitives_plain on the window bank's first chunk;
+    returns the kernels entry fields for the main-path shape
+    [2048, 640, 768]."""
+    import torch
+
+    from raven_tpu_torch.ops import consensus_cuda as cc
+
+    (cw, tl, fr, ql, wt), total = consensus_chunk()
+    log(f"window bank: 512 windows, {total} fragment rows; first chunk "
+        f"{cw.shape[0]} rows, fragments {int(ql.min())}-{int(ql.max())} bases, "
+        f"consensus {int(tl.min())}-{int(tl.max())} bases")
+    cases = (
+        ("chunk", 2048, 640, 768),
+        ("ragged", 1237, 640, 768),
+        ("narrow", 2048, 256, 256),
+    )
+    main = None
+    for name, B, T, Q in cases:
+        args = tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (
+                cw[:B, :T], np.minimum(tl[:B], T), fr[:B, :Q],
+                np.minimum(ql[:B], Q), wt[:B, :Q],
+            )
+        )
+        got = cc._kernel(*args)
+        want = cc.votes_primitives_plain(*args)
+        torch.cuda.synchronize()
+        eq = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(
+            int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+            for a, b in zip(got, want)
+        )
+        require(eq, f"K2 differs from votes_primitives_plain at {name} "
+                f"[{B}, {T}, {Q}] (max abs err {err})")
+        ms = cuda_ms(lambda: cc._kernel(*args))
+        plain_ms = cuda_ms(lambda: cc.votes_primitives_plain(*args), runs=3, warmup=1)
+        bound, by, parts = votes_bound(args[1], args[3], T, Q)
+        log(
+            f"K2 {name} [B, T, Q] = [{B}, {T}, {Q}]: bit-equal, max_abs_err "
+            f"{err}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms by {by} ({bound / ms:.3f} of it reached)"
+        )
+        log(
+            f"  bound parts: {parts['bytes']} B at {HBM_BYTES_PER_S:.3g} B/s = "
+            f"{parts['bytes_ms']:.4f} ms; {parts['cells']} DP cells (padded "
+            f"rectangle {parts['padded_cells']}) x {K2_INSTR_PER_CELL} = "
+            f"{parts['int_ops']} integer instructions at "
+            f"{INT_INSTR_PER_S:.4g}/s = {parts['ops_ms']:.4f} ms"
+        )
+        if name == "chunk":
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": by, "shape": [B, T, Q],
+                    "padded_bound_ms": parts["padded_cells"] * K2_INSTR_PER_CELL
+                    / INT_INSTR_PER_S * 1e3}
+    return main
+
+
+@contextlib.contextmanager
+def polisher_stage_walls(walls: dict, consensus_calls: list):
+    """Time the Polisher's stages (read mapping, fragment placement with
+    its crossing DP, the crossing DP alone, the consensus) into `walls`,
+    in seconds summed over the rounds, and append each consensus call's
+    windows, fragment rows and seconds to `consensus_calls`; each stage's
+    device work ends in a host copy of its result, so the walls hold it."""
+    from raven_tpu_torch.polish.polisher import Polisher
+
+    names = ("_find_overlaps", "_fragments", "_crossings", "_run_consensus")
+    saved = {n: getattr(Polisher, n) for n in names}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                dt = time.perf_counter() - t0
+                walls[name] = walls.get(name, 0.0) + dt
+                if name == "_run_consensus":
+                    jobs = a[1]
+                    consensus_calls.append({
+                        "windows": len(jobs),
+                        "rows": sum(len(job[3]) for job in jobs),
+                        "seconds": dt,
+                    })
+        return wrapper
+
+    for n, fn in saved.items():
+        setattr(Polisher, n, timed(n, fn))
+    try:
+        yield walls
+    finally:
+        for n, fn in saved.items():
+            setattr(Polisher, n, fn)
+
+
+def phase_polish(device, work_dir, draft, genome_size=1_000_000):
+    """The main path with polish on phase 4's reads: -p 2 with the full-NW
+    device consensus in chunks of 8 x 256 fragment rows, every core for
+    the host stages.  `draft` is phase 4's unpolished contig, whose error
+    rate is measured against the truth span and orientation the polished
+    contig aligns to (a draft at ~5% error has too few exact 48-mers for
+    contig_ed's own anchoring, and its fallback aligns the whole genome in
+    both orientations, which takes minutes)."""
+    from raven_tpu_torch.io.readset import reverse_complement
+    from raven_tpu_torch.ops.edit_distance import edit_distance_banded
+    from raven_tpu_torch.utils.synth import _anchor_span, contig_ed
+
+    flags = ("-p", "2", "--device-poa-batches", "8", "-t", str(os.cpu_count()))
+    walls: dict = {}
+    calls: list = []
+    with polisher_stage_walls(walls, calls):
+        run = cli_run(device, work_dir, genome_size, flags=flags)
+    genome = run["genome"]
+    lengths = run["lengths"]
+    require(len(lengths) == 1, f"expected 1 polished contig, got {len(lengths)}")
+    require(lengths[0] >= 0.97 * genome_size,
+            f"polished contig {lengths[0]} < 0.97 x {genome_size}")
+    t0 = time.perf_counter()
+    polished = run["contigs"][0]
+    ed, span = contig_ed(polished, genome)
+    consistent, spans = _anchor_span(polished, genome)
+    if not consistent:
+        draft = reverse_complement(draft)
+        consistent, spans = _anchor_span(reverse_complement(polished), genome)
+    require(consistent, "the polished contig has no consistent truth span")
+    s0, e0 = spans[0]
+    ed0, span0 = int(edit_distance_banded(draft, genome[s0:e0])), e0 - s0
+    t_ed = time.perf_counter() - t0
+    rate, rate0 = ed / lengths[0], ed0 / draft.size
+    for r in run["polish_rounds"]:
+        log(f"  polish round {r['round']}: {r['engine']} consensus, wall "
+            f"{r['wall_s']:.3f} s")
+    log("  polisher stages over both rounds: " + ", ".join(
+        f"{n.strip('_')} {v:.3f} s" for n, v in walls.items()
+    ) + " (fragments holds crossings)")
+    for i, c in enumerate(calls):
+        log(f"  consensus call {i}: {c['windows']} windows, {c['rows']} "
+            f"fragment rows ({-(-c['rows'] // 2048)} chunks of 2048 x 4 "
+            f"iterations), {c['seconds']:.3f} s")
+    log(
+        f"polished contig {lengths[0]} bp: edit distance {ed} over a "
+        f"{span} bp truth span = {rate * 100:.4f}% (unpolished -p 0 contig "
+        f"{draft.size} bp: {ed0} over {span0} bp = {rate0 * 100:.4f}%; "
+        f"metric {t_ed:.1f} s); K2 launches {run['k2_launches']}; crossing-DP "
+        f"runs on the card {run['dp_runs']}"
+    )
+    require(rate <= ED_RATE_CEILING,
+            f"polished edit-distance rate {rate:.6f} above {ED_RATE_CEILING}")
+    require(run["k2_launches"] > 0, "the polish run launched K2 no time")
+    require(run["dp_runs"] > 0, "the crossing DP did not run on the card")
+    require(all(r["engine"] == "device" for r in run["polish_rounds"]),
+            "a polish round left the device consensus")
+    run["ed_rate"], run["ed_rate_unpolished"] = rate, rate0
+    run["stage_walls"] = walls
+    return run
+
+
 # -------------------------------------------------------------------- main
 def run() -> dict:
     import torch
@@ -461,9 +700,14 @@ def run() -> dict:
         cwd=REPO,
     )
     try:
-        csrc.build("sketch")
-        log(f"nvcc sketch.cu: {csrc.BUILD_SECONDS.get('sketch', 0.0):.2f} s "
-            "(0 when build/cuda/libsketch.so was up to date)")
+        csrc.build_all(["sketch", "consensus"])
+        for name in ("sketch", "consensus"):
+            log(f"nvcc {name}.cu: done {csrc.BUILD_SECONDS.get(name, 0.0):.2f} s "
+                f"after the builds started (0 when build/cuda/lib{name}.so was "
+                "up to date)")
+            for line in csrc.BUILD_LOG.get(name, "").splitlines():
+                if "Compiling entry" in line or "registers" in line:
+                    log(f"  ptxas {name}: {line.strip()}")
         readset = synth_reads(genome, cov, 9000, 0.10)
 
         device = "cuda"
@@ -476,6 +720,8 @@ def run() -> dict:
     del readset
     main_path, repeat_path = phase_cli(device, work)
     lay = phase_layout(device)
+    k2 = phase_votes(device)
+    pol = phase_polish(device, work, main_path["contigs"][0])
 
     kernels = [{
         "name": "segment_sketch",
@@ -485,6 +731,7 @@ def run() -> dict:
         "launches": main_path["launches"],
         "launches_overlap_stage": ov["launches"],
         "launches_repeat_cli": repeat_path["launches"],
+        "launches_polish_cli": pol["launches"],
         "equal": True,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
@@ -493,6 +740,21 @@ def run() -> dict:
         "bound_by": k1["bound_by"],
         "library_ms": None,
         "shape": k1["shape"],
+    }, {
+        "name": "window_consensus_votes",
+        "route": "cuda",
+        "source": "raven_tpu_torch/csrc/consensus.cu",
+        "replaces": "raven_tpu/ops/pallas_consensus.py:237",
+        "launches": pol["k2_launches"],
+        "equal": True,
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": None,
+        "shape": k2["shape"],
+        "padded_bound_ms": k2["padded_bound_ms"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -3,9 +3,11 @@
 The torch port of raven_tpu/cli.py: the same flags and defaults, plus
 `--device` (default cuda).  Reference: RavenExe/src/main.cc:16-223 — same
 run order: [resume] -> load sequences -> construct -> assemble -> GFA dumps
--> unitig FASTA to stdout.  This slice of the port runs the `-p 0` path
-(an unpolished draft assembly); any `-p` above 0 exits with status 2,
-because polishing arrives in a later slice.
+-> polish -> GFA dumps -> unitig FASTA to stdout.  Polishing (`-p` above 0)
+runs with the full-NW device consensus, which `--device-poa-batches B`
+selects; the consensus engines not ported yet (the shift-banded default
+that runs without `--device-poa-batches`, and `--device-banded-alignment`)
+exit with status 2.
 """
 
 from __future__ import annotations
@@ -15,7 +17,13 @@ import sys
 import time
 
 from raven_tpu_torch import __version__
-from raven_tpu_torch.config import GLOBALS, OverlapPhaseCfg
+from raven_tpu_torch.config import (
+    GLOBALS,
+    AlignCfg,
+    DeviceCfg,
+    OverlapPhaseCfg,
+    PolishCfg,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,24 +63,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--device",
         default="cuda",
-        help="device for the overlap index and the layout (cuda or cpu)",
+        help="device for the overlap index, the layout and the polish "
+        "(cuda or cpu)",
     )
     p.add_argument("--version", action="version", version=__version__)
     return p
 
 
 def main(argv: list[str] | None = None, timings: dict | None = None) -> int:
-    """Run the CLI; `timings`, when given, receives the construct and
-    assemble walls in seconds."""
+    """Run the CLI; `timings`, when given, receives the construct, assemble
+    and polish walls in seconds ("construct_s", "assemble_s", "polish_s")
+    and each polish round's wall and engine ("polish_rounds")."""
     args = build_parser().parse_args(argv)
     if not args.sequences and not args.resume:
         build_parser().print_help()
         return 0
-    if args.polishing_rounds > 0:
+    if args.polishing_rounds > 0 and (
+        args.device_poa_batches <= 0 or args.device_banded_alignment
+    ):
+        engine = (
+            "the anchored banded consensus (--device-banded-alignment)"
+            if args.device_banded_alignment
+            else "the shift-banded consensus (the default without "
+            "--device-poa-batches)"
+        )
         print(
             f"[raven_tpu_torch::] error: -p {args.polishing_rounds} asks for "
-            "polishing, which arrives in a later slice of the port; run "
-            "with -p 0 for an unpolished assembly",
+            f"{engine}, which arrives in a later slice of the port; run "
+            "with --device-poa-batches B (the full-NW device consensus) and "
+            "without --device-banded-alignment, or with -p 0 for an "
+            "unpolished assembly",
             file=sys.stderr,
         )
         return 2
@@ -89,6 +109,7 @@ def main(argv: list[str] | None = None, timings: dict | None = None) -> int:
     )
     from raven_tpu_torch.graph.common import unitig_record_name
     from raven_tpu_torch.io import load_sequences
+    from raven_tpu_torch.polish import polish
 
     device = resolve_device(args.device)
     GLOBALS.min_unitig_size = args.min_unitig_size
@@ -108,9 +129,9 @@ def main(argv: list[str] | None = None, timings: dict | None = None) -> int:
             file=sys.stderr,
         )
 
-    # sequences are needed unless resuming past construct
+    # sequences needed unless resuming past construct with polishing done
     readset = None
-    if graph.stage < -3:
+    if graph.stage < -3 or args.polishing_rounds > max(0, graph.stage):
         t0 = time.perf_counter()
         try:
             readset = load_sequences(args.sequences)
@@ -141,15 +162,34 @@ def main(argv: list[str] | None = None, timings: dict | None = None) -> int:
     t1 = time.perf_counter()
     assemble(graph, checkpoints, device=device)
     t2 = time.perf_counter()
+    if readset is not None:
+        polish(
+            graph,
+            readset,
+            PolishCfg(
+                align_cfg=AlignCfg(args.match, args.mismatch, args.gap),
+                device_cfg=DeviceCfg(
+                    args.device_poa_batches,
+                    args.device_alignment_batches,
+                    args.device_banded_alignment,
+                ),
+                num_rounds=args.polishing_rounds,
+            ),
+            checkpoints,
+            device=device,
+            timings=timings,
+        )
+    t3 = time.perf_counter()
     if timings is not None:
         timings["construct_s"] = t1 - t0
         timings["assemble_s"] = t2 - t1
+        timings["polish_s"] = t3 - t2
 
     print_gfa(graph, args.graphical_fragment_assembly)
     if args.unitig_graphical_fragment_assembly:
         print_unitig_gfa(graph, args.unitig_graphical_fragment_assembly)
 
-    for node in get_unitigs(graph, False):
+    for node in get_unitigs(graph, args.polishing_rounds > 0):
         sys.stdout.write(f">{unitig_record_name(node)}\n")
         sys.stdout.write(node.sequence_str() + "\n")
 

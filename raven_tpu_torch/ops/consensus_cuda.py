@@ -1,0 +1,271 @@
+"""Window-consensus votes: the CUDA kernel K2 and its plain PyTorch version.
+
+`votes_primitives(cw, tlens, frags, qlens, wts)` is the port of the TPU
+kernel raven_tpu/ops/pallas_consensus.py::pallas_votes_primitives.  On a
+CUDA tensor it launches the hand-written kernel in
+raven_tpu_torch/csrc/consensus.cu (see the note there for what it computes,
+what bounds it and how the design answers that) or raises; on a CPU tensor
+it runs `votes_primitives_plain`, the same function in torch ops.  Both
+return (col_sym, col_w) [B, T] and (ins_b, ins_w) [B, T+1], int32,
+bit-identical to the TPU kernel's outputs (whose insertion tables are
+[B, TP] with TP = T+1 rounded up to 128; the columns past T+1 are never
+written there).
+
+`votes_from_primitives` is the epilogue (integer scatter-adds into the
+per-window tables) and `fused_votes` the drop-in for
+raven_tpu.ops.consensus_device.fused_votes_kernel(band=0).
+
+`LAUNCHES` counts kernel launches, so a run can show that its main path
+went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+MATCH, MISMATCH, GAP = 3, -5, -4
+NEG = -(1 << 20)
+LAUNCHES = 0
+
+
+def votes_primitives_plain(cw, tlens, frags, qlens, wts):
+    """cw [B, T] int32 window consensus per fragment (pad < 0), tlens [B],
+    frags / wts [B, Q] int32 (frags pad -1, weights 0-255), qlens [B].
+    Returns (col_sym, col_w [B, T], ins_b, ins_w [B, T+1]) int32.
+
+    The forward is a loop over the T rows of [B, Q] tensors with a row-wise
+    cummax for the left closure; the traceback walks all B fragments in
+    lockstep, one move per step, as raven_tpu's traceback_kernel does, and
+    the walk's steps turn into vote primitives afterwards, as its
+    _votes_from_paths does.  Rows at or past max(tlens) and columns past
+    max(qlens) never reach an output, so they are not computed."""
+    B, T = cw.shape
+    Q = frags.shape[1]
+    dev = cw.device
+    i32, i64 = torch.int32, torch.int64
+    tl = tlens.to(i64).clamp(0, T)
+    ql = qlens.to(i64).clamp(0, Q)
+    if B == 0:
+        return _decode(torch.zeros((0, T), dtype=i32, device=dev),
+                       torch.zeros((0, T + 1), dtype=i32, device=dev))
+    Te = max(int(tl.max()), 1)
+    Qe = max(int(ql.max()), 1)
+    # DP values lie within +-4 (T + Q): int16 holds them at the consensus
+    # shapes and halves the memory traffic of every row op
+    vt = torch.int16 if 8 * (T + Q) < (1 << 15) else i32
+    f = frags[:, :Qe].to(vt)
+    c = cw.to(vt)
+    jg = (torch.arange(1, Qe + 1, dtype=vt, device=dev) * GAP)[None, :]
+    rows = torch.arange(B, device=dev)
+
+    # forward: moves 0 diag, 1 up, 2 left; the value at column q_len per
+    # row.  Integer arithmetic only (no bool tensors, no where): the
+    # substitution score is MATCH - 8 min(|f - c|, 1), the move
+    # max(up > diag, 2 (closed > e)), each comparison a clamp of a
+    # difference to [0, 1].
+    moves = torch.empty((Te, B, Qe), dtype=torch.int8, device=dev)
+    ends = torch.empty((Te, B), dtype=i32, device=dev)
+    prev = jg.expand(B, Qe).contiguous()
+    diag = torch.empty((B, Qe), dtype=vt, device=dev)
+    qcol = (ql - 1).clamp(min=0)
+    for r in range(Te):
+        sub = MATCH - (MATCH - MISMATCH) * (f - c[:, r : r + 1]).abs_().clamp_(max=1)
+        diag[:, 0] = sub[:, 0]  # D[r-1][0] = 0
+        torch.add(prev[:, :-1], sub[:, 1:], out=diag[:, 1:])
+        up = prev + GAP
+        e = torch.maximum(diag, up)
+        closed = torch.cummax(e - jg, dim=1).values.clamp_(min=0).add_(jg)
+        moves[r] = torch.maximum(
+            (up - diag).clamp_(0, 1), (closed - e).clamp_(0, 1).mul_(2)
+        )
+        prev = torch.maximum(closed, e)
+        ends[r] = prev[rows, qcol]
+    # best end over the active rows, the first maximum row winning
+    active = (torch.arange(Te, device=dev)[:, None] < tl[None, :]) & (ql > 0)
+    ends = torch.where(active, ends, NEG)
+    best_val, best_r = ends.max(dim=0)  # ties: the first maximal row
+    best_r = torch.where(best_val > NEG, best_r, 0)
+
+    # traceback in lockstep; each step lowers t or j by one
+    t = torch.where(ql * GAP >= best_val, 0, best_r + 1)
+    j = ql.clone()
+    steps = int((t + j).max())
+    mflat = moves.reshape(-1)
+    pk = (frags.to(i64).clamp(0, 3) | (wts.to(i64) << 2)).reshape(-1)
+    row_q = rows * Q
+    hist_t = torch.empty((steps, B), dtype=i64, device=dev)
+    hist_mv = torch.empty((steps, B), dtype=i64, device=dev)
+    hist_pk = torch.empty((steps, B), dtype=i64, device=dev)
+    for s in range(steps):
+        tm1 = (t - 1).clamp_(min=0)
+        jm1 = (j - 1).clamp_(min=0)
+        mv = mflat[(tm1 * B + rows) * Qe + jm1.clamp(max=Qe - 1)].to(i64)
+        mv = torch.where(t == 0, 2, mv)
+        mv = torch.where(j > 0, mv, 3)  # 3: the walk has ended
+        hist_t[s] = t
+        hist_mv[s] = mv
+        hist_pk[s] = pk[row_q + jm1]
+        t = t - (mv <= 1).to(i64)
+        j = j - ((mv == 0) | (mv == 2)).to(i64)
+
+    # vote primitives: a column vote per diag/up move at row t-1, an
+    # insertion where a run of left moves starts (in walk order); every
+    # (fragment, row) gets at most one of each, the rest lands in a dump
+    # slot
+    fb = hist_pk & 3
+    fw = hist_pk >> 2
+    diag_up = hist_mv <= 1
+    sym = torch.where(hist_mv == 0, fb, 4)
+    prev_mv = torch.cat([torch.full((1, B), 3, dtype=i64, device=dev), hist_mv[:-1]])
+    is_ins = (hist_mv == 2) & (prev_mv != 2)
+    col_pack = torch.zeros(B * (T + 1), dtype=i32, device=dev)
+    col_pack[rows * (T + 1) + torch.where(diag_up, hist_t - 1, T)] = torch.where(
+        diag_up, 1 | (sym << 1) | (fw << 4), 0
+    ).to(i32)
+    ins_pack = torch.zeros(B * (T + 2), dtype=i32, device=dev)
+    ins_pack[rows * (T + 2) + torch.where(is_ins, hist_t, T + 1)] = torch.where(
+        is_ins, 1 | (fb << 1) | (fw << 3), 0
+    ).to(i32)
+    return _decode(
+        col_pack.reshape(B, T + 1)[:, :T], ins_pack.reshape(B, T + 2)[:, : T + 1]
+    )
+
+
+def _decode(col_pack, ins_pack):
+    """The TPU wrapper's decoding of the packed primitives
+    (pallas_consensus.py:297-302)."""
+    col_has = (col_pack & 1) != 0
+    col_sym = torch.where(col_has, (col_pack >> 1) & 7, 5).to(torch.int32)
+    col_w = torch.where(col_has, col_pack >> 4, 0).to(torch.int32)
+    ins_has = (ins_pack & 1) != 0
+    ins_b = torch.where(ins_has, (ins_pack >> 1) & 3, -1).to(torch.int32)
+    ins_w = torch.where(ins_has, ins_pack >> 3, 0).to(torch.int32)
+    return col_sym, col_w, ins_b, ins_w
+
+
+def _check(cw, tlens, frags, qlens, wts):
+    if cw.dim() != 2 or frags.dim() != 2 or wts.shape != frags.shape:
+        raise TypeError(
+            f"cw must be [B, T] and frags, wts [B, Q], got {tuple(cw.shape)}, "
+            f"{tuple(frags.shape)}, {tuple(wts.shape)}"
+        )
+    B = cw.shape[0]
+    for name, x, shape in (
+        ("cw", cw, (B, cw.shape[1])), ("tlens", tlens, (B,)),
+        ("frags", frags, (B, frags.shape[1])), ("qlens", qlens, (B,)),
+        ("wts", wts, (B, frags.shape[1])),
+    ):
+        if x.dtype != torch.int32 or tuple(x.shape) != shape:
+            raise TypeError(f"{name} must be {list(shape)} int32, got {x.dtype} {tuple(x.shape)}")
+        if x.device != cw.device:
+            raise ValueError("all inputs must lie on one device")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _kernel(cw, tlens, frags, qlens, wts):
+    global LAUNCHES
+    from raven_tpu_torch import csrc
+
+    _check(cw, tlens, frags, qlens, wts)
+    B, T = cw.shape
+    Q = frags.shape[1]
+    dev = cw.device
+    col_sym = torch.empty((B, T), dtype=torch.int32, device=dev)
+    col_w = torch.empty((B, T), dtype=torch.int32, device=dev)
+    ins_b = torch.empty((B, T + 1), dtype=torch.int32, device=dev)
+    ins_w = torch.empty((B, T + 1), dtype=torch.int32, device=dev)
+    if B == 0:
+        return col_sym, col_w, ins_b, ins_w
+    lib = csrc.load("consensus")
+    words = lib.raven_votes_moves_words
+    words.restype = ctypes.c_longlong
+    words.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    n_words = words(B, T, Q)
+    if n_words <= 0:
+        raise ValueError(f"K2 does not take T={T}, Q={Q} (needs 1 <= Q <= 1024)")
+    moves = torch.empty(n_words, dtype=torch.int32, device=dev)
+    fn = lib.raven_votes_primitives_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(
+        cw.data_ptr(), tlens.data_ptr(), frags.data_ptr(), qlens.data_ptr(),
+        wts.data_ptr(), moves.data_ptr(), col_sym.data_ptr(), col_w.data_ptr(),
+        ins_b.data_ptr(), ins_w.data_ptr(), B, T, Q, stream,
+    )
+    csrc.check(lib, err, "window consensus kernel launch")
+    LAUNCHES += 1
+    return col_sym, col_w, ins_b, ins_w
+
+
+def votes_primitives(cw, tlens, frags, qlens, wts):
+    """K2 on a CUDA tensor, its plain version on a CPU tensor."""
+    if cw.device.type == "cuda":
+        return _kernel(cw, tlens, frags, qlens, wts)
+    if cw.device.type == "cpu":
+        return votes_primitives_plain(cw, tlens, frags, qlens, wts)
+    raise ValueError(f"no window consensus kernel for device {cw.device}")
+
+
+def votes_from_primitives(col_sym, col_w, ins_b, ins_w, win_idx, cons_runs, T, NWIN):
+    """Aggregate per-fragment primitives into the per-window vote tables
+    (raven_tpu/ops/pallas_consensus.py::votes_from_primitives) with integer
+    index_add_; entries that carry no vote land in a dump slot past the
+    table.  Returns (base_votes [NWIN, T, 5], ins_votes [NWIN, T+1, 4],
+    cover [NWIN, T]) int32."""
+    dev = col_sym.device
+    w = win_idx.to(torch.int64)[:, None]
+    t_idx = torch.arange(T, device=dev)[None, :]
+    valid = col_sym < 5
+    col = col_sym.to(torch.int64).clamp(0, 4)
+    cell = w * T + t_idx
+    n_base = NWIN * T * 5
+    base = torch.zeros(n_base + 1, dtype=torch.int32, device=dev)
+    base.index_add_(
+        0, torch.where(valid, cell * 5 + col, n_base).reshape(-1),
+        torch.where(valid, col_w, 0).reshape(-1),
+    )
+    cover = torch.zeros(NWIN * T + 1, dtype=torch.int32, device=dev)
+    cover.index_add_(
+        0, torch.where(valid, cell, NWIN * T).reshape(-1),
+        valid.to(torch.int32).reshape(-1),
+    )
+    tj = torch.arange(T + 1, device=dev)[None, :]
+    imask = ins_b >= 0
+    fb = ins_b.to(torch.int64).clamp(0, 3)
+    junction = cons_runs.to(torch.int64)[w, tj, fb]
+    n_ins = NWIN * (T + 1) * 4
+    ins = torch.zeros(n_ins + 1, dtype=torch.int32, device=dev)
+    ins.index_add_(
+        0, torch.where(imask, (w * (T + 1) + junction) * 4 + fb, n_ins).reshape(-1),
+        torch.where(imask, ins_w, 0).reshape(-1),
+    )
+    return (
+        base[:n_base].reshape(NWIN, T, 5),
+        ins[:n_ins].reshape(NWIN, T + 1, 4),
+        cover[: NWIN * T].reshape(NWIN, T),
+    )
+
+
+def fused_votes(cons_arr, cons_lens, cons_runs, frags, q_lens, wts, win_idx, T, Q, NWIN):
+    """Vote tables of one fragment chunk: the drop-in for
+    raven_tpu.ops.consensus_device.fused_votes_kernel(band=0), through K2
+    on the card (raven_tpu's fused_votes_pallas).  cons_arr [NWIN, T] (pad
+    < 0), cons_lens [NWIN], cons_runs [NWIN, T+1, 4], frags / wts [B, Q],
+    q_lens, win_idx [B], all int32 on one device.  Returns (base_votes
+    [NWIN, T, 5], ins_votes [NWIN, T+1, 4], cover [NWIN, T]) int32."""
+    if cons_arr.shape != (NWIN, T) or frags.shape[1] != Q:
+        raise ValueError(
+            f"cons_arr {tuple(cons_arr.shape)} / frags {tuple(frags.shape)} do "
+            f"not match NWIN={NWIN}, T={T}, Q={Q}"
+        )
+    wi = win_idx.to(torch.int64)
+    cw = cons_arr[wi].contiguous()
+    cwl = cons_lens[wi].contiguous()
+    col_sym, col_w, ins_b, ins_w = votes_primitives(cw, cwl, frags, q_lens, wts)
+    return votes_from_primitives(col_sym, col_w, ins_b, ins_w, win_idx, cons_runs, T, NWIN)

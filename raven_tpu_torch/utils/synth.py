@@ -1,11 +1,14 @@
-"""Synthetic read sets and the overlap-set digest used to check runs.
+"""Synthetic read sets, consensus windows and the checks used on runs.
 
-Copies of the repository's generators, so the port's checks need nothing
-of raven_tpu: `synth_reads` is bench.py's overlap-stage workload (E. coli
-scale, substitutions only), `simulate_reads` is misc/reference_compare.py's
-ONT-like simulator (substitutions and indels) behind the synthetic golden
-test, and `overlap_digest` is bench.py's order-independent digest of an
-emitted overlap set.
+Copies of the repository's generators and metrics, so the port's checks
+need nothing of raven_tpu: `synth_reads` is bench.py's overlap-stage
+workload (E. coli scale, substitutions only), `simulate_reads` is
+misc/reference_compare.py's ONT-like simulator (substitutions and indels)
+behind the synthetic golden test, `make_windows` is bench_polish.py's bank
+of 500 bp consensus windows, `overlap_digest` is bench.py's
+order-independent digest of an emitted overlap set, and `contig_ed` is
+misc/reference_compare.py's anchored edit distance of a contig against the
+true genome.
 """
 
 from __future__ import annotations
@@ -100,3 +103,112 @@ def overlap_digest(results) -> tuple[str, int]:
         h.update(np.int64(rid).tobytes())
         h.update(arr.tobytes())
     return h.hexdigest(), n
+
+
+def make_windows(n_windows: int, window: int, coverage: int, rng):
+    """bench_polish.py::make_windows: windows of `window` random truth
+    bases, each with a backbone and `coverage` fragments drawn from the
+    truth with 6% deletions, 4% substitutions and 5% insertions, weights
+    11.  Returns ([(backbone, fragments, weights)], total truth bases)."""
+    windows = []
+    total_bases = 0
+    for _ in range(n_windows):
+        truth = rng.integers(0, 4, window).astype(np.uint8)
+
+        def mutate():
+            keep = rng.random(window) >= 0.06  # deletions
+            seg = truth[keep]
+            subs = rng.random(seg.size) < 0.04
+            seg = np.where(
+                subs, (seg + rng.integers(1, 4, seg.size)) % 4, seg
+            ).astype(np.uint8)
+            ins = rng.random(seg.size) < 0.05
+            out = np.repeat(seg, 1 + ins.astype(np.int64))
+            return out
+
+        backbone = mutate()
+        frags = [mutate() for _ in range(coverage)]
+        wts = [np.full(f.size, 11, np.uint8) for f in frags]
+        windows.append((backbone, frags, wts))
+        total_bases += window
+    return windows, total_bases
+
+
+def _anchor_span(codes: np.ndarray, truth: np.ndarray, k: int = 48):
+    """misc/reference_compare.py::_anchor_span: the contig's span in the
+    truth from exact k-mer probes near its ends, repeat-aware.  Returns
+    (consistent, [(t_start, t_end), ...])."""
+    tb = truth.tobytes()
+    n = codes.size
+
+    def all_hits(o: int):
+        pat = codes[o : o + k].tobytes()
+        hits, p = [], tb.find(pat)
+        while p >= 0 and len(hits) < 64:
+            hits.append(p)
+            p = tb.find(pat, p + 1)
+        return hits
+
+    def probe(region_start: int, count: int = 8, stride: int = 199):
+        for i in range(count):
+            o = region_start + i * stride
+            if o < 0 or o + k > n:
+                continue
+            hits = all_hits(o)
+            if hits:
+                return o, hits
+        return None
+
+    head = probe(0)
+    tail = probe(n - k - 8 * 199)
+    if head is None or tail is None:
+        return False, []
+    best = None
+    for ph in head[1]:
+        for pt in tail[1]:
+            t_start = ph - head[0]
+            t_end = pt + (n - tail[0])
+            span = t_end - t_start
+            if span <= 0:
+                continue
+            dev = abs(span - n)
+            if best is None or dev < best[0]:
+                best = (dev, t_start, t_end)
+    if best is not None and best[0] <= 0.3 * n:
+        return True, [(max(0, best[1]), min(truth.size, best[2]))]
+    spans = []
+    for ph in head[1][:4]:
+        s = max(0, ph - head[0])
+        spans.append((s, min(truth.size, s + n)))
+    for pt in tail[1][:4]:
+        s = max(0, pt - tail[0])
+        spans.append((s, min(truth.size, s + n)))
+    return False, spans
+
+
+def contig_ed(codes: np.ndarray, truth: np.ndarray) -> tuple[int, int]:
+    """misc/reference_compare.py::contig_ed: (edit distance, aligned truth
+    span) of a contig against the truth region it assembles, both
+    orientations tried, with the port's edit_distance_banded."""
+    from raven_tpu_torch.io.readset import reverse_complement
+    from raven_tpu_torch.ops.edit_distance import edit_distance_banded
+
+    anchored = []
+    for cand in (codes, reverse_complement(codes)):
+        consistent, spans = _anchor_span(cand, truth)
+        if consistent:
+            anchored = [(cand, sp) for sp in spans]
+            break
+        anchored.extend((cand, sp) for sp in spans)
+    best = None
+    for cand, (s, e) in anchored:
+        ed = edit_distance_banded(cand, truth[s:e])
+        if best is None or ed < best[0]:
+            best = (int(ed), int(e - s))
+    if best is not None:
+        return best
+    ed = min(
+        edit_distance_banded(codes, truth),
+        edit_distance_banded(reverse_complement(codes), truth),
+    )
+    return int(ed), int(truth.size)

@@ -1,6 +1,7 @@
 """raven_tpu_torch stands alone: every module imports with jax blocked and
 loads nothing of raven_tpu; the default device is CUDA and raises without
-it; polishing (-p above 0) exits with status 2 instead of being skipped."""
+it; polishing with a consensus engine not ported yet (-p above 0 without
+--device-poa-batches) exits with status 2 instead of being skipped."""
 
 import os
 import subprocess
