@@ -11,8 +11,11 @@ failure:
      and K2 with nvcc for sm_90a, one nvcc per source, started together);
   2. kernel K1 (segment sketch, csrc/sketch.cu) against its plain torch
      version on the card, bit for bit, at (k, w) = (15, 5) and (11, 3), on
-     a chunk of real segment rows [8192, 2048] and a ragged row count;
-     median times over CUDA events beside the bound;
+     a chunk of real segment rows [8192, 2048] and a ragged row count, and
+     on the cases its strips and 16-byte accesses could break: widths 2047
+     and 1000, lengths below k, a row of one repeated base and rows whose
+     k-mers are their own reverse complements (at an even k), and a window
+     wider than 16; median times over CUDA events beside the bound;
   3. the overlap stage on bench.py's workload (2.3 Mb genome at 50x,
      ~115 Mbp): minimize -> filter -> map_many on the card, cold and
      steady, its overlap digest held against the port's host path run in
@@ -31,8 +34,12 @@ failure:
      plain torch version on the card, bit for bit, on the first chunk of
      bench_polish.py's window bank (512 windows x 30 fragments) laid out
      as the polisher lays it out: [B, T, Q] = [2048, 640, 768], a ragged
-     B = 1237, and T = Q = 256; median times over CUDA events beside the
-     bound;
+     B = 1237, and T = Q = 256; and on the cases its fragment pairs and
+     column tiles could break: the chunk's rows shuffled, qlen 0 in one
+     half of some pairs at the odd B, fragments twice their consensus's
+     length at Q = 1024, fragments that mismatch everywhere (the int16
+     floor), and walks that start at row 0; median times over CUDA events
+     beside the bound;
   7. the main path with polish: `raven_tpu_torch.cli.main([reads, "-p",
      "2", "--device-poa-batches", "8", "-t", <cores>, ...])` on phase 4's
      1 Mb x 30x reads, which must give one contig of at least 0.97 of the
@@ -64,11 +71,14 @@ SEG_ROWS = 8192  # one sketch chunk of the device index build
 # (Hopper white paper), the ALU and FMA (IMAD) pipes together
 HBM_BYTES_PER_S = 3.35e12
 INT_INSTR_PER_S = 4 * 32 * 132 * 1.98e9
-# K2's forward needs at least 14 integer instructions per DP cell: the
-# substitution score (compare, select), the diag and up adds, their max
-# and move bit, the closure's subtract, running max, clamp and add, the
-# left compare and select, and the 2-bit move pack
-K2_INSTR_PER_CELL = 14
+# K2's forward needs at least 4 integer instructions per DP cell on the
+# H100's 16-bit pair instructions (DPX), which hold two cells: per pair,
+# the substitution score's compare and select (2), the diag add (1), the up
+# add and max with its which-won predicate (2), the left add and max with
+# its predicate (2), and one pack of the predicates into move bits (1).
+# (With scalar int32 instructions the fewest is 14 a cell.)
+K2_INSTR_PER_CELL = 4
+K2_TILE = 256  # columns of one of K2's column tiles
 ED_RATE_CEILING = 0.0005  # tests/test_synthetic_golden.py
 
 
@@ -154,11 +164,22 @@ def votes_bound(tlens, qlens, T: int, Q: int) -> tuple[float, str, dict]:
     col_w, ins_b, ins_w out; all int32) over HBM bandwidth, and
     K2_INSTR_PER_CELL integer instructions per DP cell this data needs
     (tlen x qlen per fragment: no output depends on another cell) over the
-    card's instruction issue rate."""
+    card's instruction issue rate.  Also counts the cells the kernel
+    computes: per pair of rows, the longer active consensus times its
+    column tiles, in both halves."""
     import torch
 
     B = int(tlens.numel())
-    cells = int((tlens.to(torch.int64) * qlens.to(torch.int64)).sum())
+    tl = tlens.to(torch.int64).clamp(0, T)
+    ql = qlens.to(torch.int64).clamp(0, Q)
+    cells = int((tl * ql).sum())
+    act = torch.where(ql > 0, tl, 0)
+    if B % 2:
+        act = torch.cat([act, act.new_zeros(1)])
+        ql = torch.cat([ql, ql.new_zeros(1)])
+    rows = act.view(-1, 2).max(dim=1).values
+    tiles = (ql.view(-1, 2).max(dim=1).values + K2_TILE - 1) // K2_TILE
+    computed = int((rows * tiles).sum()) * K2_TILE * 2
     nbytes = 4 * (B * T + 2 * B * Q + 2 * B) + 4 * (2 * B * T + 2 * B * (T + 1))
     ops = cells * K2_INSTR_PER_CELL
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -166,7 +187,8 @@ def votes_bound(tlens, qlens, T: int, Q: int) -> tuple[float, str, dict]:
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, {
         "bytes": nbytes, "int_ops": ops, "cells": cells,
-        "padded_cells": B * T * Q, "bytes_ms": t_bytes, "ops_ms": t_ops,
+        "computed_cells": computed, "padded_cells": B * T * Q,
+        "bytes_ms": t_bytes, "ops_ms": t_ops,
     }
 
 
@@ -218,7 +240,37 @@ def phase_sketch(readset, device):
             if (k, w) == (15, 5) and S == rows:
                 main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound, "bound_by": by, "shape": [S, 2048]}
+    for k, w in ((15, 5), (12, 4), (11, 20)):
+        for L in (2047, 1000):
+            codes, lens = sketch_edge_case(codes_all, eff_all, 1237, L, k)
+            got = sketch_cuda._kernel(codes, lens, k, w)
+            want = sketch_cuda.sketch_plain(codes, lens, k, w)
+            torch.cuda.synchronize()
+            eq = all(torch.equal(a, b) for a, b in zip(got, want))
+            require(eq, f"K1 differs from sketch_plain on the edge rows at "
+                    f"k={k} w={w} L={L}")
+            ms = cuda_ms(lambda: sketch_cuda._kernel(codes, lens, k, w))
+            log(f"K1 edge rows k={k} w={w} S=1237 L={L}: bit-equal; kernel "
+                f"{ms:.4f} ms; {int(want[2].sum())} kept, "
+                f"{int((want[1] == 0).sum())} reverse-strand or empty positions")
     return main
+
+
+def sketch_edge_case(codes_all, eff_all, S: int, L: int, k: int):
+    """S real segment rows cut to width L, with rows 0-2 of lengths 0, k - 1
+    and k, row 3 one repeated base, rows 4 and 5 the periodic ACGT... and
+    ATAT..., whose k-mers at an even k include (or, for ATAT..., are all)
+    their own reverse complements, and row 6 ending exactly at L."""
+    import torch
+
+    codes = codes_all[:S, :L].clone()
+    lens = eff_all[:S].clamp(max=L).clone()
+    lens[0], lens[1], lens[2] = 0, k - 1, k
+    codes[3] = 2
+    codes[4] = torch.arange(L, device=codes.device) % 4
+    codes[5] = (torch.arange(L, device=codes.device) % 2) * 3
+    lens[3:7] = L
+    return codes.contiguous(), lens.contiguous()
 
 
 def overlap_stage(readset, device):
@@ -506,10 +558,50 @@ def consensus_chunk(n_rows: int = 2048, t_pad: int = 640, q_pad: int = 768):
     return (cw, tl, fr, ql, wt), total
 
 
+def votes_edge_cases(cw, tl, fr, ql, wt):
+    """[name, (cw, tlens, frags, qlens, wts)] cases that K2's fragment
+    pairs and column tiles could break, built from the bank's chunk."""
+    rng = np.random.default_rng(5)
+    cases = []
+    perm = rng.permutation(cw.shape[0])
+    cases.append(("shuffled", tuple(a[perm] for a in (cw, tl, fr, ql, wt))))
+    # qlen 0 in one half of some pairs (odd and even rows), at an odd B
+    q0 = ql[:1237].copy()
+    q0[1::7] = 0
+    cases.append(("odd B, qlen 0 halves", (cw[:1237], tl[:1237], fr[:1237, :768],
+                                           q0, wt[:1237, :768])))
+    # each fragment twice over: ~2x its consensus's length, at Q = 1024
+    Q = 1024
+    fr2 = np.full((cw.shape[0], Q), -1, np.int32)
+    wt2 = np.zeros((cw.shape[0], Q), np.int32)
+    q2 = np.minimum(2 * ql, Q).astype(np.int32)
+    for b in range(cw.shape[0]):
+        f = np.concatenate([fr[b, : ql[b]], fr[b, : ql[b]]])[:Q]
+        fr2[b, : f.size] = f
+        wt2[b, : f.size] = np.concatenate([wt[b, : ql[b]], wt[b, : ql[b]]])[:Q]
+    cases.append(("twice the consensus, Q = 1024", (cw, tl, fr2, q2, wt2)))
+    # all-A consensus against all-C fragments of 1024 bases: every cell a
+    # mismatch, the DP at its floor
+    n = 256
+    cwm = np.where(np.arange(cw.shape[1])[None, :] < tl[:n, None], 0, -1).astype(np.int32)
+    cases.append(("all mismatches, Q = 1024", (
+        cwm, tl[:n], np.ones((n, Q), np.int32), np.full(n, Q, np.int32),
+        np.full((n, Q), 7, np.int32))))
+    # consensus of 0 or 1 bases against 50 mismatching ones: q * GAP is the
+    # best end value (or there is none), so each walk starts at row 0
+    t0 = (np.arange(n) % 2).astype(np.int32)
+    f0 = np.full((n, 768), -1, np.int32)
+    f0[:, :50] = 1
+    w0 = np.where(f0 >= 0, 9, 0).astype(np.int32)
+    cases.append(("walks from row 0", (cwm[:, :640] * 0, t0, f0,
+                                       np.full(n, 50, np.int32), w0)))
+    return cases
+
+
 def phase_votes(device):
-    """K2 vs votes_primitives_plain on the window bank's first chunk;
-    returns the kernels entry fields for the main-path shape
-    [2048, 640, 768]."""
+    """K2 vs votes_primitives_plain on the window bank's first chunk and on
+    the edge cases; returns the kernels entry fields for the main-path
+    shape [2048, 640, 768]."""
     import torch
 
     from raven_tpu_torch.ops import consensus_cuda as cc
@@ -518,20 +610,26 @@ def phase_votes(device):
     log(f"window bank: 512 windows, {total} fragment rows; first chunk "
         f"{cw.shape[0]} rows, fragments {int(ql.min())}-{int(ql.max())} bases, "
         f"consensus {int(tl.min())}-{int(tl.max())} bases")
-    cases = (
-        ("chunk", 2048, 640, 768),
-        ("ragged", 1237, 640, 768),
-        ("narrow", 2048, 256, 256),
-    )
-    main = None
-    for name, B, T, Q in cases:
-        args = tuple(
-            torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in (
+    cases = [
+        (name, tuple(
+            np.ascontiguousarray(a) for a in (
                 cw[:B, :T], np.minimum(tl[:B], T), fr[:B, :Q],
                 np.minimum(ql[:B], Q), wt[:B, :Q],
             )
+        ))
+        for name, B, T, Q in (
+            ("chunk", 2048, 640, 768),
+            ("ragged", 1237, 640, 768),
+            ("narrow", 2048, 256, 256),
         )
+    ] + votes_edge_cases(cw, tl, fr, ql, wt)
+    main = None
+    for name, arrays in cases:
+        args = tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays
+        )
+        B, T = args[0].shape
+        Q = args[2].shape[1]
         got = cc._kernel(*args)
         want = cc.votes_primitives_plain(*args)
         torch.cuda.synchronize()
@@ -552,16 +650,19 @@ def phase_votes(device):
         )
         log(
             f"  bound parts: {parts['bytes']} B at {HBM_BYTES_PER_S:.3g} B/s = "
-            f"{parts['bytes_ms']:.4f} ms; {parts['cells']} DP cells (padded "
-            f"rectangle {parts['padded_cells']}) x {K2_INSTR_PER_CELL} = "
-            f"{parts['int_ops']} integer instructions at "
-            f"{INT_INSTR_PER_S:.4g}/s = {parts['ops_ms']:.4f} ms"
+            f"{parts['bytes_ms']:.4f} ms; {parts['cells']} DP cells needed x "
+            f"{K2_INSTR_PER_CELL} = {parts['int_ops']} integer instructions at "
+            f"{INT_INSTR_PER_S:.4g}/s = {parts['ops_ms']:.4f} ms; the kernel "
+            f"computes {parts['computed_cells']} cells (padded rectangle "
+            f"{parts['padded_cells']})"
         )
         if name == "chunk":
             main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound, "bound_by": by, "shape": [B, T, Q],
                     "padded_bound_ms": parts["padded_cells"] * K2_INSTR_PER_CELL
-                    / INT_INSTR_PER_S * 1e3}
+                    / INT_INSTR_PER_S * 1e3,
+                    "cells": parts["cells"],
+                    "computed_cells": parts["computed_cells"]}
     return main
 
 
@@ -755,6 +856,8 @@ def run() -> dict:
         "library_ms": None,
         "shape": k2["shape"],
         "padded_bound_ms": k2["padded_bound_ms"],
+        "cells": k2["cells"],
+        "computed_cells": k2["computed_cells"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(smi)

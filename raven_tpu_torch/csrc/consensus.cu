@@ -19,30 +19,66 @@
 //   moves starts (in walk order).  Outputs decode as the TPU wrapper does:
 //   col_sym 5 / col_w 0 / ins_b -1 / ins_w 0 where nothing was written.
 //
-// Rows at or past tlen and columns past qlen never reach an output (the
-// walk starts at or above row tlen and at column qlen, and column j depends
-// only on columns <= j), so the kernel runs rows r < tlen only; a fragment
-// with qlen 0 writes nothing.
+// The closure is the linear-gap recurrence D[r][j] = max(e[j], D[r][j-1] +
+// GAP) with D[r][0] = 0, and "left when closed > e" is D[r][j-1] + GAP >
+// e[j]: the same integers and the same ties.  Rows at or past tlen and
+// columns past qlen never reach an output, so they are not needed.
 //
-// What bounds it on an H100: integer instructions.  The forward needs some
-// 14 per DP cell at the fewest (compare and select of the substitution
-// score, two adds, the diag/up max and its move bit, the closure's
-// subtract, running max, clamp, add, compare and select, and the 2-bit
-// move pack); the moves, 2 bits a cell, are the only large traffic and
-// take about a fifth of that time at the card's memory rate.  Design: one
-// warp per fragment, four fragments per block.  Each lane owns a strip of
-// C consecutive columns (C = ceil(Q/32) rounded up to a multiple of 4, a
-// template parameter, so the strip lives in registers).  A row takes the
-// left neighbour's previous value through __shfl_up_sync, computes diag
-// and up for its strip right to left in place, then the prefix max of the
-// closure as a serial max within the strip and a 5-step warp scan across
-// strips.  Each lane writes its row of 2-bit moves as C/16 words
-// (neighbouring lanes on neighbouring words) to a global scratch; lane 0
-// then walks the traceback from those words, with the window consensus
-// row and the per-row vote primitives in shared memory, and the warp
-// writes the four decoded outputs with neighbouring lanes on neighbouring
-// addresses.  The walk is serial (tlen + qlen dependent loads at most) and
-// leaves 31 lanes idle; it is this first version's known cost.
+// Values: D lies in [-4Q, 3Q].  The kernel keeps D'[r][j] = D[r][j] - 3r
+// + 0xC000 in 16 bits: the row shift folds the match score into the row
+// (diag' = D'[r-1][j-1] - 8 on a mismatch, up' = D'[r-1][j] - 7, left' =
+// D'[r][j-1] - 4; every comparison of a row is shifted alike, so the moves
+// and their ties are unchanged), and the bias keeps every value in [8,
+// 0xFFFF] while 4Q + 3T + 8 <= 0xC000, so that unsigned 16-bit pair
+// max/min and plain 32-bit adds and subtracts of two packed values never
+// carry between the halves.  The launcher refuses Q > 1024 and T past that
+// bound.  Fragment and consensus codes are compared on their low 16 bits,
+// as the plain version compares them in int16 (the codes are 0-3, pads
+// -1).
+//
+// What bounds it on an H100: integer instructions.  On Hopper's 16-bit
+// pair instructions (DPX) a pair of cells needs at the fewest 8: the
+// substitution score's compare and select, the diag add, the up add and
+// max with its which-won predicate, the left add and max with its
+// predicate, and one pack of the predicates into move bits; so 4 a cell.
+// The moves, 2 bits a cell, are the only large traffic.  The integer ALU
+// pipe takes a warp instruction every other cycle on each scheduler, so
+// the pair instructions that only it runs (the score compare, the add-max
+// pairs, the 0/1 tests of the move bits) set the forward's pace; the adds,
+// subtracts and the bit packing go to the IMAD pipe beside it.
+//
+// Design:
+//   * Two fragments a warp (rows 2p and 2p+1 of the chunk), one in each
+//     16-bit half of every register; the add-max pairs are one VIADDMNMX
+//     each, the rest splits between the integer and the IMAD pipes.  Each
+//     half keeps its own tlen, qlen, best end value and walk.
+//   * Lane-pipelined rows: the warp sweeps a tile of 256 columns, each
+//     lane a strip of 8 in registers, and at step s lane l computes row
+//     s - l over its strip (e right to left, then the closure as the
+//     recurrence above left to right), so one __shfl_up_sync a step hands
+//     each lane its left neighbour's last column; no scan, one sweep.  The
+//     fill is 31 steps.  The row's consensus codes come from shared memory
+//     a step ahead.
+//   * Column tiles sized to the fragment: the pair takes ceil(max(qlen) /
+//     256) tiles, each half's columns aligned so that its column qlen is
+//     the tile row's last (lane 31, slot 7).  The columns left of a
+//     half's column 1 are held at D'[r][0].  Lane 31's last column goes to
+//     shared memory each row: it is the next tile's left boundary and,
+//     after the last tile, every row's end value, from which the warp
+//     takes the best row.
+//   * Moves: one 32-bit word per lane and step (8 columns x 2 halves x 2
+//     bits), stored at (step, lane), so a step's 32 stores are one
+//     128-byte line.  Code 3 (up and left both won) reads as left.
+//   * The walk: lane 0 walks half 0 and lane 1 half 1.  When a walker
+//     leaves its box of moves, the warp loads, for both walkers in one
+//     batch, the box ahead of each (64 steps x 8 lanes of one tile: the
+//     rows above and the columns to the left) into shared memory; a walker
+//     then steps in shared memory, its box position updated move by move,
+//     with the fragment's bases and weights staged there too.  One memory
+//     round trip per ~55 moves, not per move.
+//   * One warp a block; shared memory per warp is ~6T + 2Q words, so a
+//     T = 640 chunk holds ~10 warps an SM, more than the 8 a 2,048-row
+//     chunk puts there.  Registers (~128 a thread) are not the limit.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C
 // interface (see raven_tpu_torch/csrc/__init__.py); the launcher returns
@@ -53,19 +89,119 @@
 
 namespace {
 
-constexpr int kWarps = 4;  // fragments per block
-constexpr int kMatch = 3;
-constexpr int kMismatch = -5;
+constexpr int kC = 8;               // columns a lane
+constexpr int kTile = 32 * kC;      // columns a tile
 constexpr int kGap = -4;
-constexpr int kNeg = -(1 << 20);   // no end value yet
-constexpr int kNeg2 = -(1 << 26);  // below any closure value
+constexpr int kNeg = -(1 << 20);    // no end value yet
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kMaxQ = 32 * 32;
+constexpr int kMaxQ = 1024;
+constexpr int kBoxRows = 64;        // move-storage steps a traceback box holds
+constexpr int kBoxLanes = 8;        // lanes (8 columns each) a box holds
+constexpr int kBox = kBoxRows * kBoxLanes;
+constexpr uint32_t kGap2 = 0xFFFCFFFCu;  // GAP in both halves
+constexpr uint32_t kUp2 = 0xFFF9FFF9u;   // GAP - MATCH in both halves
+constexpr uint32_t kOnes = 0x00010001u;
+constexpr uint32_t kRow2 = 0x00030003u;  // MATCH in both halves
+constexpr int kBias = 0xC000;            // added to every stored DP value
 
-__host__ __device__ constexpr int words_per_lane(int c) { return (c + 15) / 16; }
+// max(a + b, c) per unsigned 16-bit half: one VIADDMNMX
+__device__ __forceinline__ uint32_t addmax2(uint32_t a, uint32_t b, uint32_t c) {
+  return __viaddmax_u16x2(a, b, c);
+}
 
-template <int C>
-__global__ void __launch_bounds__(kWarps * 32)
+// 1 in each 16-bit half of x that is not 0, else 0
+__device__ __forceinline__ uint32_t nonzero2(uint32_t x) { return __vminu2(x, kOnes); }
+
+__device__ __forceinline__ uint32_t pack2(int lo, int hi) {
+  return static_cast<uint32_t>(static_cast<uint16_t>(lo)) |
+         (static_cast<uint32_t>(static_cast<uint16_t>(hi)) << 16);
+}
+
+// DP row 0 at strip position p: column j = p - off + 1 of each half holds
+// j*GAP, and the positions left of column 1 hold D[0][0] = 0
+__device__ __forceinline__ uint32_t row0(int p, int off0, int off1) {
+  const int j0 = p - off0 + 1, j1 = p - off1 + 1;
+  return pack2(kBias + (j0 >= 1 ? j0 * kGap : 0), kBias + (j1 >= 1 ? j1 * kGap : 0));
+}
+
+// D'[r][0] = -MATCH*r in both halves, biased
+__device__ __forceinline__ uint32_t col0(int r) {
+  return pack2(kBias, kBias) - static_cast<uint32_t>(r) * kRow2;
+}
+
+// One tile of the forward: steps 0 .. tmax + 30, lane `lane` on row
+// s - lane.  kMasked holds the positions left of a half's column 1 at
+// D'[r][0].
+template <bool kMasked>
+__device__ __forceinline__ void forward_tile(
+    const uint32_t (&fc)[kC], uint32_t (&prev)[kC], const uint32_t (&keep)[kC],
+    uint32_t dleft, const uint32_t* s_cw, uint32_t* s_bnd, uint32_t* mv_tile,
+    int lane, bool first_tile, int tmax) {
+  uint32_t lin = 0;
+  // this step's consensus codes and (lane 0) left boundary, loaded a step
+  // ahead so the shared-memory latency stays off the row's critical path
+  uint32_t tch = s_cw[-lane];  // padded: no clamp
+  uint32_t bnd = first_tile ? 0u : s_bnd[1];
+  uint32_t* mvp = mv_tile + lane;
+  for (int s = 0; s < tmax + 31; ++s) {
+    const int rho = s - lane;
+    const uint32_t fill = col0(rho + 1);  // D'[rho + 1][0]
+    if (lane == 0) lin = first_tile ? fill : bnd;
+    const uint32_t tch_next = s_cw[rho + 1];
+    const uint32_t bnd_next = lane == 0 && !first_tile ? s_bnd[rho + 2] : 0u;
+    if (rho >= 0 && rho < tmax) {
+      // e right to left (each column reads the previous row's values at
+      // its own and its left neighbour's column), then the closure and the
+      // move bits left to right, writing the row over the previous one
+      uint32_t ev[kC], dg[kC];
+#pragma unroll
+      for (int i = kC - 1; i >= 0; --i) {
+        const uint32_t dl = i > 0 ? prev[i - 1] : dleft;  // D'[rho][column - 1]
+        // diag' = D'[rho][column - 1], less MATCH - MISMATCH where the
+        // codes differ (the row shift holds the MATCH)
+        dg[i] = dl - (nonzero2(fc[i] ^ tch) << 3);
+        ev[i] = addmax2(prev[i], kUp2, dg[i]);
+      }
+      uint32_t left = lin;  // D'[rho + 1][strip - 1]
+      uint32_t word = 0;
+#pragma unroll
+      for (int i = 0; i < kC; ++i) {
+        uint32_t d = addmax2(left, kGap2, ev[i]);
+        if (kMasked) d = (d & keep[i]) | (fill & ~keep[i]);
+        word += nonzero2(ev[i] - dg[i]) << (2 * i);  // up won
+        word += nonzero2(d - ev[i]) << (2 * i + 1);  // left won
+        prev[i] = d;
+        left = d;
+      }
+      dleft = lin;
+      *mvp = word;
+      if (lane == 31) s_bnd[rho + 1] = prev[kC - 1];
+    }
+    tch = tch_next;
+    bnd = bnd_next;
+    mvp += 32;
+    lin = __shfl_up_sync(kFull, prev[kC - 1], 1);
+  }
+}
+
+// the shapes whose stored values D - 3r + kBias all lie in [8, 0xFFFF]
+constexpr bool supported(int T, int Q) {
+  return Q >= 1 && Q <= kMaxQ && T >= 1 && 4LL * Q + 3LL * T + 8 <= kBias;
+}
+
+__host__ __device__ constexpr int tiles(int Q) { return (Q + kTile - 1) / kTile; }
+
+// the forward's part of a warp's shared memory (s_cw with 32 words of pad
+// on either side, s_bnd with 32 past its end), which the walk's boxes reuse
+__host__ __device__ constexpr int forward_words(int T) {
+  return 2 * T + 97 > 2 * kBox ? 2 * T + 97 : 2 * kBox;
+}
+
+__host__ __device__ constexpr long long smem_words(int T, int Q) {
+  return forward_words(T) + 2LL * Q + 4LL * T + 2;
+}
+
+__global__ void __launch_bounds__(32, 16)
 votes_primitives_kernel(const int32_t* __restrict__ cw,
                         const int32_t* __restrict__ tlens,
                         const int32_t* __restrict__ frags,
@@ -77,172 +213,232 @@ votes_primitives_kernel(const int32_t* __restrict__ cw,
                         int32_t* __restrict__ ins_b,
                         int32_t* __restrict__ ins_w,
                         long long B, int T, int Q) {
-  constexpr int WPL = words_per_lane(C);
-  constexpr int ROW_WORDS = 32 * WPL;
-  extern __shared__ int32_t smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long b = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (b >= B) return;  // whole warps only
-  int32_t* s_cw = smem + warp * (3 * T + 1);  // [T] window consensus
-  int32_t* s_col = s_cw + T;                  // [T] packed column votes
-  int32_t* s_ins = s_col + T;                 // [T + 1] packed insertions
+  extern __shared__ uint32_t smem[];
+  const int lane = threadIdx.x;
+  const long long pair = blockIdx.x;
+  const long long b0 = 2 * pair;
+  const int T31 = T + 31;  // move-storage steps a tile
+  const int fw = forward_words(T);
+  uint32_t* s_cw = smem + 32;        // [T] both halves' consensus codes (forward)
+  uint32_t* s_bnd = smem + T + 64;   // [T + 1] last column of a tile (forward)
+  uint32_t* s_box = smem;       // [2][kBox] traceback boxes (walk)
+  int32_t* s_pk = reinterpret_cast<int32_t*>(smem + fw);  // [2][Q] base | w<<2
+  int32_t* s_col = s_pk + 2 * Q;                          // [2][T]
+  int32_t* s_ins = s_col + 2 * T;                         // [2][T + 1]
 
-  const int tlen = min(max(tlens[b], 0), T);
-  const int qlen = min(max(qlens[b], 0), Q);
-  const int32_t* cw_row = cw + b * T;
-  for (int t = lane; t < T; t += 32) {
-    s_cw[t] = cw_row[t];
-    s_col[t] = 0;
+  int tl[2], ql[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long b = b0 + h;
+    tl[h] = b < B ? min(max(tlens[b], 0), T) : 0;
+    ql[h] = b < B ? min(max(qlens[b], 0), Q) : 0;
   }
-  for (int t = lane; t <= T; t += 32) s_ins[t] = 0;
+  const bool has1 = b0 + 1 < B;
+  // a half without fragment bases needs no row (its walk writes nothing)
+  const int tmax = max(ql[0] > 0 ? tl[0] : 0, ql[1] > 0 ? tl[1] : 0);
+  const int kt = tiles(max(ql[0], ql[1]));
+  const int off0 = kt * kTile - ql[0];
+  const int off1 = kt * kTile - ql[1];
+
+  const int32_t* cw0 = cw + b0 * T;
+  const int32_t* cw1 = cw0 + T;
+  for (int t = lane; t < T; t += 32) {
+    s_cw[t] = pack2(cw0[t], has1 ? cw1[t] : 0);
+    s_col[t] = 0;
+    s_col[T + t] = 0;
+  }
+  for (int t = lane; t <= T; t += 32) {
+    s_ins[t] = 0;
+    s_ins[T + 1 + t] = 0;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int32_t* f_row = frags + (b0 + h) * Q;
+    const int32_t* w_row = wts + (b0 + h) * Q;
+    for (int j = lane; j < ql[h]; j += 32) {
+      s_pk[h * Q + j] = static_cast<int32_t>(
+          static_cast<uint32_t>(min(max(f_row[j], 0), 3)) |
+          (static_cast<uint32_t>(w_row[j]) << 2));
+    }
+  }
   __syncwarp();
 
-  if (qlen > 0) {  // warp-uniform
-    const int32_t* f_row = frags + b * Q;
-    const int j0 = lane * C;  // array column of strip slot 0 (DP column j0+1)
-    int fc[C];
-    int prev[C];
+  // forward, tile by tile
+  uint32_t* mv_pair = moves + static_cast<size_t>(pair) * tiles(Q) * T31 * 32;
+  const int32_t* f0 = frags + b0 * Q;
+  const int32_t* f1 = f0 + Q;
+  for (int k = 0; k < kt; ++k) {
+    const int p0 = k * kTile + lane * kC;
+    uint32_t fc[kC], prev[kC], keep[kC];
 #pragma unroll
-    for (int i = 0; i < C; ++i) {
-      const int col = j0 + i;
-      fc[i] = col < Q ? f_row[col] : -1;  // columns past Q never reach an output
-      prev[i] = (col + 1) * kGap;         // DP row 0
+    for (int i = 0; i < kC; ++i) {
+      const int c0 = p0 + i - off0, c1 = p0 + i - off1;  // fragment columns
+      fc[i] = pack2(c0 >= 0 ? f0[c0] : -1, c1 >= 0 ? f1[c1] : -1);
+      prev[i] = row0(p0 + i, off0, off1);
+      keep[i] = (c0 >= 0 ? 0x0000FFFFu : 0u) | (c1 >= 0 ? 0xFFFF0000u : 0u);
     }
-    const int lane_q = (qlen - 1) / C;
-    const int iq = (qlen - 1) % C;
-    int best_val = kNeg;
-    int best_r = 0;
-    uint32_t* mv_lane = moves + static_cast<size_t>(b) * T * ROW_WORDS + lane * WPL;
+    const uint32_t dleft = row0(p0 - 1, off0, off1);  // D'[0][strip - 1]
+    uint32_t* mv_tile = mv_pair + static_cast<size_t>(k) * T31 * 32;
+    if (k * kTile < max(off0, off1)) {
+      forward_tile<true>(fc, prev, keep, dleft, s_cw, s_bnd, mv_tile, lane,
+                         k == 0, tmax);
+    } else {
+      forward_tile<false>(fc, prev, keep, dleft, s_cw, s_bnd, mv_tile, lane,
+                          k == 0, tmax);
+    }
+    __syncwarp();
+  }
 
-    for (int r = 0; r < tlen; ++r) {
-      const int tch = s_cw[r];
-      int left = __shfl_up_sync(kFull, prev[C - 1], 1);
-      if (lane == 0) left = 0;  // D[r-1][0] = 0
-      uint32_t up_bits = 0;
-      int lmax = kNeg2;
-      // diag / up, right to left so prev[i-1] is still the previous row
+  // best end value per half over its rows: the first maximal row wins
+  int best_v[2], best_r[2];
 #pragma unroll
-      for (int i = C - 1; i >= 0; --i) {
-        const int pj1 = i > 0 ? prev[i - 1] : left;
-        const int diag = pj1 + (fc[i] == tch ? kMatch : kMismatch);
-        const int up = prev[i] + kGap;
-        if (up > diag) up_bits |= 1u << i;
-        const int e = max(diag, up);
-        prev[i] = e;
-        lmax = max(lmax, e - (j0 + i + 1) * kGap);
-      }
-      // exclusive prefix max of the strips' maxima across the warp
-      int incl = lmax;
-#pragma unroll
-      for (int s = 1; s < 32; s <<= 1) {
-        const int o = __shfl_up_sync(kFull, incl, s);
-        if (lane >= s) incl = max(incl, o);
-      }
-      int run = __shfl_up_sync(kFull, incl, 1);
-      if (lane == 0) run = kNeg2;
-      // left closure within the strip, moves packed 16 per word
-      uint32_t w[WPL];
-#pragma unroll
-      for (int k = 0; k < WPL; ++k) w[k] = 0;
-      int endv = kNeg;
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        const int jg = (j0 + i + 1) * kGap;
-        const int e = prev[i];
-        run = max(run, e - jg);
-        const int closed = max(run, 0) + jg;
-        uint32_t mv = (up_bits >> i) & 1u;
-        if (closed > e) {
-          mv = 2u;
-          prev[i] = closed;
-        }
-        w[i / 16] |= mv << (2 * (i % 16));
-        if (i == iq) endv = prev[i];
-      }
-#pragma unroll
-      for (int k = 0; k < WPL; ++k) mv_lane[static_cast<size_t>(r) * ROW_WORDS + k] = w[k];
-      if (lane == lane_q && endv > best_val) {  // the first max row wins
-        best_val = endv;
-        best_r = r;
+  for (int h = 0; h < 2; ++h) {
+    int v = kNeg, r = 0;
+    const int rows = ql[h] > 0 ? tl[h] : 0;
+    for (int rr = lane; rr < rows; rr += 32) {
+      const int x = static_cast<int>((s_bnd[rr + 1] >> (16 * h)) & 0xFFFFu) -
+                    kBias + 3 * (rr + 1);
+      if (x > v) {
+        v = x;
+        r = rr;
       }
     }
-    best_val = __shfl_sync(kFull, best_val, lane_q);
-    best_r = __shfl_sync(kFull, best_r, lane_q);
-    __syncwarp();  // the moves of every lane are visible to lane 0
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const int ov = __shfl_xor_sync(kFull, v, o);
+      const int orr = __shfl_xor_sync(kFull, r, o);
+      if (ov > v || (ov == v && orr < r)) {
+        v = ov;
+        r = orr;
+      }
+    }
+    best_v[h] = v;
+    best_r[h] = r;
+  }
+  __syncwarp();  // the boxes overwrite s_cw and s_bnd
 
-    if (lane == 0) {
-      const int32_t* w_row = wts + b * Q;
-      const uint32_t* mv_frag = moves + static_cast<size_t>(b) * T * ROW_WORDS;
-      int t = qlen * kGap >= best_val ? 0 : best_r + 1;
-      int j = qlen;
-      int prev_mv = 3;
-      while (j > 0) {
-        int mv = 2;  // row 0: left only
-        if (t > 0) {
-          const int c = j - 1;
-          const int i = c % C;
-          const uint32_t word =
-              mv_frag[static_cast<size_t>(t - 1) * ROW_WORDS + (c / C) * WPL + i / 16];
-          mv = (word >> (2 * (i % 16))) & 3u;
+  // the walks: lane 0 on half 0, lane 1 on half 1
+  const int h = lane & 1;
+  const int off = h ? off1 : off0;
+  int wt = 0, wj = 0, wprev = 3;
+  if (lane < 2) {
+    wj = ql[h];
+    wt = ql[h] * kGap >= best_v[h] ? 0 : best_r[h] + 1;
+  }
+  int bk = -1, bs0 = 0, bl0 = 0;  // the walker's box: tile, first step, first lane
+  const uint32_t* my_box = s_box + h * kBox;
+  int32_t* my_col = s_col + h * T;
+  int32_t* my_ins = s_ins + h * (T + 1);
+  const int32_t* my_pk = s_pk + h * Q;
+  while (true) {
+    const bool walking = lane < 2 && wj > 0;
+    int k = 0, s = 0, lam = 0;
+    bool need = false;
+    if (walking && wt > 0) {
+      const unsigned p = wj - 1 + off;  // strip position of column j
+      k = p / kTile;
+      lam = (p / kC) % 32;
+      s = wt - 1 + lam;
+      need = k != bk || static_cast<unsigned>(lam - bl0) >= kBoxLanes ||
+             static_cast<unsigned>(s - bs0) >= kBoxRows;
+    }
+    if (__ballot_sync(kFull, walking) == 0) break;
+    // when one walker leaves its box, both take a new one, in one batch
+    const unsigned needs = __ballot_sync(kFull, need);
+    const unsigned reading = __ballot_sync(kFull, walking && wt > 0);
+    if (needs != 0) {  // warp-uniform
+      uint32_t v[2][kBox / 32];
+      bool fetch[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        fetch[hh] = (reading >> hh) & 1u;
+        const int fk = __shfl_sync(kFull, k, hh);
+        const int s0 = max(__shfl_sync(kFull, s, hh) - (kBoxRows - 1), 0);
+        const int l0 = max(__shfl_sync(kFull, lam, hh) - (kBoxLanes - 1), 0);
+        if (lane == hh && fetch[hh]) {
+          bk = fk;
+          bs0 = s0;
+          bl0 = l0;
         }
-        const int fb = min(max(f_row[j - 1], 0), 3);
-        const int fw = w_row[j - 1];
-        if (mv <= 1) {
-          s_col[t - 1] = 1 | ((mv == 0 ? fb : 4) << 1) | (fw << 4);
-          --t;
-        } else if (prev_mv != 2) {
-          s_ins[t] = 1 | (fb << 1) | (fw << 3);
+        const uint32_t* src = mv_pair + static_cast<size_t>(fk) * T31 * 32;
+#pragma unroll
+        for (int m = 0; m < kBox / 32; ++m) {
+          const int e = lane + 32 * m;
+          const int sr = s0 + e / kBoxLanes;
+          v[hh][m] = fetch[hh] && sr < T31
+                         ? src[static_cast<size_t>(sr) * 32 + l0 + e % kBoxLanes]
+                         : 0u;
         }
-        if (mv != 1) --j;
-        prev_mv = mv;
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (!fetch[hh]) continue;
+#pragma unroll
+        for (int m = 0; m < kBox / 32; ++m) s_box[hh * kBox + lane + 32 * m] = v[hh][m];
+      }
+    }
+    __syncwarp();
+    if (walking) {
+      // the walker's column as a strip position, and its step and lane in
+      // the box, kept up to date move by move (the box holds it on entry)
+      unsigned p = wj - 1 + off;
+      int bl = static_cast<int>((p / kC) % 32) - bl0;
+      int bs = wt - 1 + bl + bl0 - bs0;
+      uint32_t word = wt > 0 ? my_box[bs * kBoxLanes + bl] : 0u;  // under the walker
+      while (wj > 0) {
+        const int32_t pk = my_pk[wj - 1];
+        const bool edge = p % kC == 0;  // a move left leaves the lane's strip
+        // the words the next position can fall on, loaded before the move
+        // is known so that the load is off the walk's critical path: one
+        // step up (up, and diag within the strip), and one step up or two
+        // steps up in the lane to the left (left and diag out of the strip)
+        const int iu = (bs - 1) * kBoxLanes + bl;
+        const uint32_t w_up = bs >= 1 ? my_box[iu] : 0u;
+        const uint32_t w_dg = edge && bs >= 2 && bl >= 1 ? my_box[iu - kBoxLanes - 1] : 0u;
+        const uint32_t w_lf = edge && bs >= 1 && bl >= 1 ? my_box[iu - 1] : 0u;
+        // row 0: left only
+        const uint32_t mv = wt > 0 ? min((word >> (16 * h + 2 * (p % kC))) & 3u, 2u) : 2u;
+        const uint32_t fb = static_cast<uint32_t>(pk) & 3u;
+        const uint32_t fwt = static_cast<uint32_t>(pk >> 2);
+        const bool vote = mv <= 1;
+        const bool ins = mv == 2 && wprev != 2;
+        if (vote) my_col[wt - 1] = static_cast<int32_t>(1u | ((mv == 0 ? fb : 4u) << 1) | (fwt << 4));
+        if (ins) my_ins[wt] = static_cast<int32_t>(1u | (fb << 1) | (fwt << 3));
+        const int dt = vote ? 1 : 0;
+        const int dj = mv != 1 ? 1 : 0;
+        const int wrap = dj && edge ? 1 : 0;
+        wt -= dt;
+        wj -= dj;
+        p -= dj;
+        bl -= wrap;
+        bs -= dt + wrap;
+        wprev = static_cast<int>(mv);
+        word = mv == 1 ? w_up : mv == 0 ? (edge ? w_dg : w_up) : (edge ? w_lf : word);
+        if (wt > 0 && wj > 0 && (bs | bl) < 0) break;  // past the box: the warp loads the next
       }
     }
     __syncwarp();
   }
 
-  int32_t* cs = col_sym + b * T;
-  int32_t* cwt = col_w + b * T;
-  for (int t = lane; t < T; t += 32) {
-    const int p = s_col[t];
-    cs[t] = (p & 1) ? ((p >> 1) & 7) : 5;
-    cwt[t] = (p & 1) ? (p >> 4) : 0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const long long b = b0 + hh;
+    if (b >= B) break;
+    int32_t* cs = col_sym + b * T;
+    int32_t* cwt = col_w + b * T;
+    for (int t = lane; t < T; t += 32) {
+      const int p = s_col[hh * T + t];
+      cs[t] = (p & 1) ? ((p >> 1) & 7) : 5;
+      cwt[t] = (p & 1) ? (p >> 4) : 0;
+    }
+    int32_t* ib = ins_b + b * (T + 1);
+    int32_t* iw = ins_w + b * (T + 1);
+    for (int t = lane; t <= T; t += 32) {
+      const int p = s_ins[hh * (T + 1) + t];
+      ib[t] = (p & 1) ? ((p >> 1) & 3) : -1;
+      iw[t] = (p & 1) ? (p >> 3) : 0;
+    }
   }
-  int32_t* ib = ins_b + b * (T + 1);
-  int32_t* iw = ins_w + b * (T + 1);
-  for (int t = lane; t <= T; t += 32) {
-    const int p = s_ins[t];
-    ib[t] = (p & 1) ? ((p >> 1) & 3) : -1;
-    iw[t] = (p & 1) ? (p >> 3) : 0;
-  }
-}
-
-int strip_width(int Q) {
-  const int c = (Q + 31) / 32;
-  return ((c + 3) / 4) * 4;
-}
-
-template <int C>
-int launch(const void* cw, const void* tlens, const void* frags,
-           const void* qlens, const void* wts, void* moves, void* col_sym,
-           void* col_w, void* ins_b, void* ins_w, long long B, int T, int Q,
-           cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kWarps) * (3 * T + 1) * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        votes_primitives_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const long long blocks = (B + kWarps - 1) / kWarps;
-  votes_primitives_kernel<C><<<static_cast<unsigned int>(blocks), kWarps * 32,
-                               smem, stream>>>(
-      static_cast<const int32_t*>(cw), static_cast<const int32_t*>(tlens),
-      static_cast<const int32_t*>(frags), static_cast<const int32_t*>(qlens),
-      static_cast<const int32_t*>(wts), static_cast<uint32_t*>(moves),
-      static_cast<int32_t*>(col_sym), static_cast<int32_t*>(col_w),
-      static_cast<int32_t*>(ins_b), static_cast<int32_t*>(ins_w), B, T, Q);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -250,10 +446,11 @@ int launch(const void* cw, const void* tlens, const void* frags,
 extern "C" {
 
 // 32-bit words of move scratch the launcher needs for [B, T, Q] (0 when
-// the shape is not supported: Q outside 1..1024 or T < 1).
+// the shape is not supported: Q outside 1..1024, T < 1, or 4Q + 3T + 8 >
+// 49152).
 long long raven_votes_moves_words(long long B, int T, int Q) {
-  if (Q < 1 || Q > kMaxQ || T < 1) return 0;
-  return B * T * 32LL * words_per_lane(strip_width(Q));
+  if (!supported(T, Q)) return 0;
+  return (B + 1) / 2 * tiles(Q) * (T + 31LL) * 32;
 }
 
 // Launches K2 on `stream` over B fragments: cw [B, T], frags and wts
@@ -267,25 +464,26 @@ int raven_votes_primitives_launch(const void* cw, const void* tlens,
                                   void* col_w, void* ins_b, void* ins_w,
                                   long long B, int T, int Q, void* stream) {
   if (B == 0) return 0;
-  if (Q < 1 || Q > kMaxQ || T < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RAVEN_K2_CASE(C)                                                      \
-  case C:                                                                     \
-    return launch<C>(cw, tlens, frags, qlens, wts, moves, col_sym, col_w,     \
-                     ins_b, ins_w, B, T, Q, s);
-  switch (strip_width(Q)) {
-    RAVEN_K2_CASE(4)
-    RAVEN_K2_CASE(8)
-    RAVEN_K2_CASE(12)
-    RAVEN_K2_CASE(16)
-    RAVEN_K2_CASE(20)
-    RAVEN_K2_CASE(24)
-    RAVEN_K2_CASE(28)
-    RAVEN_K2_CASE(32)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (!supported(T, Q)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = smem_words(T, Q) * static_cast<long long>(sizeof(uint32_t));
+  if (smem > 48 * 1024) {
+    if (smem > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = cudaFuncSetAttribute(
+        votes_primitives_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-#undef RAVEN_K2_CASE
+  const long long blocks = (B + 1) / 2;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  votes_primitives_kernel<<<static_cast<unsigned int>(blocks), 32,
+                            static_cast<size_t>(smem),
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(cw), static_cast<const int32_t*>(tlens),
+      static_cast<const int32_t*>(frags), static_cast<const int32_t*>(qlens),
+      static_cast<const int32_t*>(wts), static_cast<uint32_t*>(moves),
+      static_cast<int32_t*>(col_sym), static_cast<int32_t*>(col_w),
+      static_cast<int32_t*>(ins_b), static_cast<int32_t*>(ins_w), B, T, Q);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* raven_cuda_error_string(int code) {

@@ -165,6 +165,28 @@ def _check(cw, tlens, frags, qlens, wts):
             raise ValueError(f"{name} must be contiguous")
 
 
+_FNS = None
+
+
+def _fns():
+    """The launcher's two C functions, typed once per process."""
+    global _FNS
+    if _FNS is None:
+        from raven_tpu_torch import csrc
+
+        lib = csrc.load("consensus")
+        words = lib.raven_votes_moves_words
+        words.restype = ctypes.c_longlong
+        words.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        fn = lib.raven_votes_primitives_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 10 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        _FNS = lib, words, fn
+    return _FNS
+
+
 def _kernel(cw, tlens, frags, qlens, wts):
     global LAUNCHES
     from raven_tpu_torch import csrc
@@ -179,19 +201,14 @@ def _kernel(cw, tlens, frags, qlens, wts):
     ins_w = torch.empty((B, T + 1), dtype=torch.int32, device=dev)
     if B == 0:
         return col_sym, col_w, ins_b, ins_w
-    lib = csrc.load("consensus")
-    words = lib.raven_votes_moves_words
-    words.restype = ctypes.c_longlong
-    words.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    lib, words, fn = _fns()
     n_words = words(B, T, Q)
     if n_words <= 0:
-        raise ValueError(f"K2 does not take T={T}, Q={Q} (needs 1 <= Q <= 1024)")
+        raise ValueError(
+            f"K2 does not take T={T}, Q={Q} (needs 1 <= Q <= 1024, T >= 1 "
+            "and 4Q + 3T + 8 <= 49152)"
+        )
     moves = torch.empty(n_words, dtype=torch.int32, device=dev)
-    fn = lib.raven_votes_primitives_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(
         cw.data_ptr(), tlens.data_ptr(), frags.data_ptr(), qlens.data_ptr(),

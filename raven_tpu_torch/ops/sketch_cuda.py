@@ -83,6 +83,26 @@ def sketch_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int):
     )
 
 
+_FNS = None
+
+
+def _fns():
+    """The launcher's C function, typed once per process."""
+    global _FNS
+    if _FNS is None:
+        from raven_tpu_torch import csrc
+
+        lib = csrc.load("sketch")
+        fn = lib.raven_sketch_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        _FNS = lib, fn
+    return _FNS
+
+
 def _kernel(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int):
     global LAUNCHES
     from raven_tpu_torch import csrc
@@ -105,13 +125,7 @@ def _kernel(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int):
     keep = torch.empty((S, L), dtype=torch.bool, device=codes.device)
     if S == 0:
         return h, strand, keep
-    lib = csrc.load("sketch")
-    fn = lib.raven_sketch_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
+    lib, fn = _fns()
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     err = fn(
         codes.data_ptr(), lengths.data_ptr(), h.data_ptr(),

@@ -99,6 +99,64 @@ def test_votes_primitives_plain_matches_pallas():
     assert (got[0][-1] == 5).all() and (got[2][-1] == -1).all()
 
 
+def _edge_case(name):
+    """Inputs that K2's fragment pairs (rows 2p, 2p+1) and column tiles
+    could break, each [B, T] / [B, Q] int32 with B a multiple of 8 (the
+    Pallas kernel's block); the same cases chip_smoke.py holds the card to."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name in ("adjacent windows", "qlen 0 in odd rows"):
+        cons_arr, cons_lens, _, frags, q_lens, wts, win_idx = _mk_case(rng, 3, 96, 128, 16)
+        if name == "qlen 0 in odd rows":
+            q_lens[[3, 9]] = 0
+            frags[[3, 9]] = -1
+            wts[[3, 9]] = 0
+        return cons_arr[win_idx], cons_lens[win_idx], frags, q_lens, wts
+    B, T, Q = 8, 48, 1024
+    tl = rng.integers(20, T + 1, B).astype(np.int32)
+    cw = np.where(np.arange(T)[None, :] < tl[:, None], rng.integers(0, 4, (B, T)), -1)
+    fr = np.full((B, Q), -1, np.int32)
+    ql = np.zeros(B, np.int32)
+    if name == "Q = 1024":  # lengths across the tile edges, one half empty
+        ql[:] = [1024, 512, 700, 0, 1, 257, 1000, 33]
+        for b in range(B):
+            fr[b, : ql[b]] = rng.integers(0, 4, ql[b])
+    elif name == "twice the consensus":  # long left runs
+        for b in range(B):
+            f = np.concatenate([cw[b, : tl[b]], cw[b, : tl[b]]])
+            f = np.where(rng.random(f.size) < 0.05, (f + 1) % 4, f)
+            ql[b] = f.size
+            fr[b, : f.size] = f
+    elif name == "all mismatches":  # every cell a mismatch: the DP's floor
+        cw = np.where(cw >= 0, 0, -1)
+        ql[:] = Q
+        fr[:] = 1
+    elif name == "walks from row 0":  # q * GAP is the best end value
+        tl = (np.arange(B) % 2).astype(np.int32)
+        cw = np.where(np.arange(T)[None, :] < tl[:, None], 0, -1)
+        ql[:] = 10
+        fr[:, :10] = 1
+    wts = np.where(fr >= 0, rng.integers(1, 256, fr.shape), 0)
+    return (cw.astype(np.int32), tl, fr, ql, wts.astype(np.int32))
+
+
+@pytest.mark.parametrize("name", [
+    "adjacent windows", "qlen 0 in odd rows", "Q = 1024", "twice the consensus",
+    "all mismatches", "walks from row 0",
+])
+def test_votes_primitives_plain_matches_pallas_edges(name):
+    cw, cwl, frags, q_lens, wts = _edge_case(name)
+    T, Q = cw.shape[1], frags.shape[1]
+    want = jpc.pallas_votes_primitives(
+        *(jnp.asarray(a) for a in (cw, cwl, frags, q_lens, wts)), T, Q, True
+    )
+    got = tcc.votes_primitives(*(_t(a) for a in (cw, cwl, frags, q_lens, wts)))
+    for g, w, width in zip(got, want, (T, T, T + 1, T + 1)):
+        assert np.array_equal(g.numpy(), np.asarray(w)[:, :width]), name
+    if name == "walks from row 0":  # the walk stays on row 0: one insertion
+        assert (got[0].numpy() == 5).all()
+        assert (got[2].numpy()[:, 0] == 1).all() and (got[2].numpy()[:, 1:] == -1).all()
+
+
 @pytest.mark.parametrize("shape", [(4, 128, 160, 32), (8, 256, 384, 64)])
 def test_fused_votes_match_fused_votes_kernel(shape):
     NWIN, T, Q, B = shape

@@ -55,6 +55,37 @@ def test_sketch_plain_matches_jax(k, w, S):
         assert np.array_equal(a, b)
 
 
+@pytest.mark.parametrize("k,w", [(15, 5), (12, 4)])
+@pytest.mark.parametrize("L", [1000, 2047])
+def test_sketch_plain_matches_jax_edge_rows(k, w, L):
+    """Widths that are no multiple of 16, lengths below k, a row of one
+    repeated base, and rows whose k-mers are their own reverse complements
+    (ACGT... has some at an even k, ATAT... has only such): the cases
+    K1's strips and 16-byte accesses could break, which chip_smoke.py
+    holds the card to."""
+    rng = np.random.default_rng(k * L)
+    S = 9
+    codes = rng.integers(0, 4, (S, L)).astype(np.uint8)
+    lens = np.full(S, L, np.int32)
+    lens[:4] = [0, k - 1, k, L - 3]
+    codes[4] = 2
+    codes[5] = np.arange(L) % 4
+    codes[6] = (np.arange(L) % 2) * 3
+    want = _jax_cols(*jsk.sketch_kernel(jnp.asarray(codes), jnp.asarray(lens), k, w))
+    got = _torch_cols(
+        *sketch_cuda.sketch_plain(torch.from_numpy(codes), torch.from_numpy(lens), k, w)
+    )
+    pal = _jax_cols(
+        *pallas_sketch(jnp.asarray(codes), jnp.asarray(lens), k, w, interpret=True)
+    )
+    for a, b, c in zip(got, want, pal):
+        assert np.array_equal(a, b)
+        assert np.array_equal(a, c)
+    assert not got[2][:2].any()  # no k-mer fits a length below k
+    if k % 2 == 0:  # every ATAT... k-mer is ambiguous: never kept
+        assert not got[2][6].any()
+
+
 def test_sketch_wrapper_takes_plain_on_cpu():
     rng = np.random.default_rng(5)
     codes = torch.from_numpy(rng.integers(0, 4, (9, 256)).astype(np.uint8))
