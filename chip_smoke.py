@@ -7,8 +7,9 @@ Needs one CUDA card (it exits non-zero without one, and outside a checkout
 of the repository) and the CUDA toolkit's nvcc.  Phases, each fatal on
 failure:
 
-  1. the card, the versions, the builds (the host C++ library, then K1
-     and K2 with nvcc for sm_90a, one nvcc per source, started together);
+  1. the card, the versions, the builds (the host C++ library, then K1,
+     K2, K3 and K4 with nvcc for sm_90a, one nvcc per source, started
+     together);
   2. kernel K1 (segment sketch, csrc/sketch.cu) against its plain torch
      version on the card, bit for bit, at (k, w) = (15, 5) and (11, 3), on
      a chunk of real segment rows [8192, 2048] and a ragged row count, and
@@ -40,13 +41,25 @@ failure:
      length at Q = 1024, fragments that mismatch everywhere (the int16
      floor), and walks that start at row 0; median times over CUDA events
      beside the bound;
-  7. the main path with polish: `raven_tpu_torch.cli.main([reads, "-p",
+  7. kernels K3 (banded forward) and K4 (walk and votes), csrc/band.cu,
+     against their plain torch versions on the card, bit for bit: the
+     bank's first group of 128 windows as the shift-banded consensus lays
+     it out, [B, T, BW] = [4096, 640, 256] with 256 padded rows (qlen 0),
+     a ragged B = 1237, partial fragments placed at r0 > 0 with weights
+     above the cap of 63, fragments longer than the band reaches, and walks
+     from row 0; median times over CUDA events beside the bound;
+  8. the main path with polish: `raven_tpu_torch.cli.main([reads, "-p",
      "2", "--device-poa-batches", "8", "-t", <cores>, ...])` on phase 4's
      1 Mb x 30x reads, which must give one contig of at least 0.97 of the
      genome at an edit-distance rate of 0.05% or less against the true
      genome (the synthetic golden gate), with K2 and the crossing DP run
      on the card;
-  8. a `kernels` JSON line, the card's name and power limit, and the last
+  9. the default polish: the same reads through `-p 2 -t <cores>` (host
+     POA in round 0, the shift-banded consensus on the card in round 1),
+     with the same gate, K3, K4 and the crossing DP run on the card, and
+     the consensus call split into host prep, K3, K4, the epilogue and the
+     K5 torch ops;
+ 10. a `kernels` JSON line, the card's name and power limit, and the last
      line {"ok": true, "device": {...}}.
 """
 
@@ -79,6 +92,18 @@ INT_INSTR_PER_S = 4 * 32 * 132 * 1.98e9
 # (With scalar int32 instructions the fewest is 14 a cell.)
 K2_INSTR_PER_CELL = 4
 K2_TILE = 256  # columns of one of K2's column tiles
+# K3's forward needs at least 10 integer instructions per band cell: the
+# substitution score's compare and select (2), the diag add (1), the up add
+# fused with the max (one VIADDMNMX, 1), the which-won predicate (1), the
+# left closure as the recurrence max(e, left + GAP) (one VIADDMNMX, 1), the
+# left predicate (1), the fragment domain's compare and select (2), one pack
+# of the move bits (1).
+K3_INSTR_PER_CELL = 10
+# K4 needs at least 6 integer instructions per row it votes on: the move's
+# shift and mask (2), the left test (1), the vote's packing (2), the next
+# lane (1).
+K4_INSTR_PER_ROW = 6
+BAND_T, BAND_BW = 640, 256  # the shift-banded consensus's t_pad and band
 ED_RATE_CEILING = 0.0005  # tests/test_synthetic_golden.py
 
 
@@ -190,6 +215,42 @@ def votes_bound(tlens, qlens, T: int, Q: int) -> tuple[float, str, dict]:
         "computed_cells": computed, "padded_cells": B * T * Q,
         "bytes_ms": t_bytes, "ops_ms": t_ops,
     }
+
+
+def band_forward_bound(B: int, T: int, BW: int) -> tuple[float, str, dict]:
+    """Least time for K3's work: the larger of the bytes each read or
+    written once (cw int32 [B, T], t_lens, q_lens, r0 int32 [B], fw_sh
+    uint8 [B, T+BW+1] in; moves int32 [T, B, BW/16], end scores int32 [T,
+    B], row-0 scores int32 [B] out) over HBM bandwidth, and
+    K3_INSTR_PER_CELL integer instructions for each of the B x T x BW band
+    cells (every cell's move is an output) over the card's instruction
+    issue rate."""
+    cells = B * T * BW
+    nbytes = 4 * B * T + 12 * B + B * (T + BW + 1) + 4 * T * B * (BW // 16) + 4 * T * B + 4 * B
+    ops = cells * K3_INSTR_PER_CELL
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_INSTR_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, {"bytes": nbytes, "int_ops": ops, "cells": cells,
+                                     "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
+def band_walk_bound(votes, B: int, T: int, BW: int) -> tuple[float, str, dict]:
+    """Least time for K4's work on these inputs: the larger of the bytes it
+    must move (the end scores int32 [T, B], which the best row needs whole;
+    row-0 scores, q_lens, r0 int32 [B]; fw_sh uint8 [B, T+BW+1]; one 4-byte
+    move word for each row the data casts a vote on; votes int32 [B, T] and
+    insertions int32 [B, T+1] out) over HBM bandwidth, and
+    K4_INSTR_PER_ROW integer instructions per voted row over the card's
+    instruction issue rate."""
+    voted = int((votes != 0).sum())
+    nbytes = 4 * T * B + 12 * B + B * (T + BW + 1) + 4 * voted + 4 * B * T + 4 * B * (T + 1)
+    ops = voted * K4_INSTR_PER_ROW
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_INSTR_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, {"bytes": nbytes, "int_ops": ops, "voted_rows": voted,
+                                     "bytes_ms": t_bytes, "ops_ms": t_ops}
 
 
 # ------------------------------------------------------------------ phases
@@ -401,7 +462,7 @@ def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> di
     from raven_tpu_torch import cli
     from raven_tpu_torch.graph import layout
     from raven_tpu_torch.io.readset import encode
-    from raven_tpu_torch.ops import consensus_cuda, dp_device
+    from raven_tpu_torch.ops import band_cuda, consensus_cuda, dp_device
     from raven_tpu_torch.ops import sketch_cuda
     from raven_tpu_torch.overlap.engine import MinimizerIndex
     from raven_tpu_torch.utils.synth import simulate_reads
@@ -419,6 +480,7 @@ def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> di
     out = io.StringIO()
     sketch_cuda.LAUNCHES = 0
     consensus_cuda.LAUNCHES = 0
+    band_cuda.LAUNCHES.update(dict.fromkeys(band_cuda.LAUNCHES, 0))
     dp_device.DEVICE_RUNS = 0
     layout.DEVICE_RUNS = 0
     MinimizerIndex.host_declines = 0
@@ -428,6 +490,8 @@ def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> di
     wall = time.perf_counter() - t0
     run = {"launches": sketch_cuda.LAUNCHES, "layout_runs": layout.DEVICE_RUNS,
            "k2_launches": consensus_cuda.LAUNCHES,
+           "k3_launches": band_cuda.LAUNCHES["band_forward"],
+           "k4_launches": band_cuda.LAUNCHES["mask_walk_votes"],
            "dp_runs": dp_device.DEVICE_RUNS,
            "declines": MinimizerIndex.host_declines, "wall_s": wall, **timings}
     require(rc == 0, f"cli exited {rc}")
@@ -666,6 +730,200 @@ def phase_votes(device):
     return main
 
 
+def band_mutate(rng, codes, sub, dele, ins):
+    """tests/test_consensus_band.py's mutate: deletions, substitutions,
+    then insertions (a base doubled)."""
+    keep = rng.random(codes.size) >= dele
+    seg = codes[keep]
+    subs = rng.random(seg.size) < sub
+    seg = np.where(subs, (seg + rng.integers(1, 4, seg.size)) % 4, seg).astype(np.uint8)
+    insm = rng.random(seg.size) < ins
+    return np.repeat(seg, 1 + insm.astype(np.int64))
+
+
+def band_cases():
+    """[name, (cw, t_lens, fw_sh, q_lens, r0)] numpy cases for K3 and K4 at
+    T = 640, BW = 256, laid out as band_window_consensus lays out a group
+    (its _prepare_group): the bank's first 128 windows (3,840 fragment rows
+    padded to 4,096), and the cases the kernels could break on."""
+    from raven_tpu_torch.ops import consensus_band as cb
+    from raven_tpu_torch.utils.synth import make_windows
+
+    T, BW = BAND_T, BAND_BW
+    windows, _ = make_windows(512, 500, 30, np.random.default_rng(21))
+
+    def layout(grp, q_pad=768):
+        grp = [(w[0], w[1], w[2], w[3] if len(w) > 3 else None) for w in grp]
+        (cons0, lens0, fw_sh, q_lens, r0, win), _ = cb._prepare_group(grp, T, q_pad, BW)
+        return cons0[win], lens0[win], fw_sh, q_lens, r0
+
+    bank = layout(windows[:128])
+    cases = [("bank group", bank), ("ragged B", tuple(a[:1237] for a in bank))]
+    # partial fragments (read ends) placed at r0 > 0, as in
+    # tests/test_consensus_band.py's production case, weights up to 255
+    rng = np.random.default_rng(5)
+    spanned = []
+    for _ in range(128):
+        truth = rng.integers(0, 4, 500).astype(np.uint8)
+        frags, spans = [], []
+        for _ in range(30):
+            s, e = 0, 500
+            if rng.random() < 0.4:
+                s = int(rng.integers(0, 300))
+                e = int(rng.integers(s + 150, 501))
+            frags.append(band_mutate(rng, truth[s:e], 0.04, 0.05, 0.05))
+            spans.append((s, e))
+        wts = [rng.integers(1, 256, f.size).astype(np.uint8) for f in frags]
+        spanned.append((band_mutate(rng, truth, 0.04, 0.05, 0.05), frags, wts, spans))
+    cases.append(("spans, weights over the cap", layout(spanned)))
+    # every other fragment twice over: q_len ~1,000 > T + BW/2 - r0 = 768
+    doubled = [
+        (bb, [np.concatenate([f, f]) if i % 2 else f for i, f in enumerate(fr)],
+         [np.concatenate([w, w]) if i % 2 else w for i, w in enumerate(wt)])
+        for bb, fr, wt in windows[128:256]
+    ]
+    cases.append(("fragments past the band", layout(doubled, q_pad=1536)))
+    # all-A consensus rows of 0, 1 or 640 bases against 50 C's: 50 * GAP is
+    # the best end score or ties it, so every walk starts at row 0
+    n = 1024
+    tl = np.resize(np.array([0, 1, T, T], np.int32), n)
+    cw = np.where(np.arange(T)[None, :] < tl[:, None], 0, -1).astype(np.int32)
+    fw_sh, ql = cb.pack_shifted_fragments(
+        [np.ones(50, np.uint8)] * n, [np.full(50, 9, np.uint8)] * n,
+        np.zeros(n, np.int32), 768, T, BW,
+    )
+    cases.append(("walks from row 0", (cw, tl, fw_sh, ql, np.zeros(n, np.int32))))
+    return cases
+
+
+def phase_band(device):
+    """K3 and K4 vs their plain versions on the band cases, bit for bit;
+    returns the kernels entry fields for the main-path shape [4096, 640,
+    256]."""
+    import torch
+
+    from raven_tpu_torch.ops import band_cuda as bc
+
+    T, BW = BAND_T, BAND_BW
+    k3 = k4 = None
+    for name, arrays in band_cases():
+        cw, tl, fw, ql, r0 = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays
+        )
+        B = cw.shape[0]
+        got = bc._forward_kernel(cw, tl, fw, ql, r0, T, BW)
+        want = bc.band_forward_plain(cw, tl, fw, ql, r0, T, BW)
+        torch.cuda.synchronize()
+        err3 = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                   for a, b in zip(got, want))
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"K3 differs from band_forward_plain at {name} [{B}, {T}, {BW}] "
+                f"(max abs err {err3})")
+        gv = bc._walk_kernel(*want, fw, ql, r0, T, BW)
+        wv = bc.mask_walk_votes_plain(*want, fw, ql, r0, T, BW)
+        torch.cuda.synchronize()
+        err4 = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                   for a, b in zip(gv, wv))
+        require(all(torch.equal(a, b) for a, b in zip(gv, wv)),
+                f"K4 differs from mask_walk_votes_plain at {name} [{B}, {T}, {BW}] "
+                f"(max abs err {err4})")
+        # walks that start at row 0: the row-0 score wins and the lane of
+        # column qlen lies in the band there
+        t0_zero = int(((want[2] >= want[1].max(dim=0).values) & (ql > 0)
+                       & (ql + BW // 2 + r0 < BW)).sum())
+        reach = int((ql > T + BW // 2 - r0).sum())
+        ms3 = cuda_ms(lambda: bc._forward_kernel(cw, tl, fw, ql, r0, T, BW))
+        ms4 = cuda_ms(lambda: bc._walk_kernel(*want, fw, ql, r0, T, BW))
+        b3, by3, p3 = band_forward_bound(B, T, BW)
+        b4, by4, p4 = band_walk_bound(wv[0], B, T, BW)
+        log(
+            f"K3/K4 {name} [B, T, BW] = [{B}, {T}, {BW}]: bit-equal (max_abs_err "
+            f"{err3}, {err4}); {int((ql == 0).sum())} rows with qlen 0, {reach} "
+            f"past the band, {t0_zero} walks from row 0, {p4['voted_rows']} voted "
+            f"rows, {int((wv[1] != 0).sum())} insertion votes"
+        )
+        log(
+            f"  K3 {ms3:.4f} ms, bound {b3:.4f} ms by {by3} ({b3 / ms3:.3f} of it "
+            f"reached); K4 {ms4:.4f} ms, bound {b4:.4f} ms by {by4} "
+            f"({b4 / ms4:.3f} of it reached)"
+        )
+        if name == "bank group":
+            plain3 = cuda_ms(lambda: bc.band_forward_plain(cw, tl, fw, ql, r0, T, BW),
+                             runs=3, warmup=1)
+            plain4 = cuda_ms(lambda: bc.mask_walk_votes_plain(*want, fw, ql, r0, T, BW),
+                             runs=3, warmup=1)
+            log(f"  plain versions: K3 {plain3:.4f} ms, K4 {plain4:.4f} ms")
+            log(
+                f"  K3 bound parts: {p3['bytes']} B at {HBM_BYTES_PER_S:.3g} B/s = "
+                f"{p3['bytes_ms']:.4f} ms; {p3['cells']} band cells x "
+                f"{K3_INSTR_PER_CELL} = {p3['int_ops']} integer instructions at "
+                f"{INT_INSTR_PER_S:.4g}/s = {p3['ops_ms']:.4f} ms"
+            )
+            log(
+                f"  K4 bound parts: {p4['bytes']} B at {HBM_BYTES_PER_S:.3g} B/s = "
+                f"{p4['bytes_ms']:.4f} ms; {p4['voted_rows']} voted rows x "
+                f"{K4_INSTR_PER_ROW} = {p4['int_ops']} integer instructions at "
+                f"{INT_INSTR_PER_S:.4g}/s = {p4['ops_ms']:.4f} ms"
+            )
+            k3 = {"max_abs_err": err3, "ms": ms3, "plain_ms": plain3, "bound_ms": b3,
+                  "bound_by": by3, "shape": [B, T, BW]}
+            k4 = {"max_abs_err": err4, "ms": ms4, "plain_ms": plain4, "bound_ms": b4,
+                  "bound_by": by4, "shape": [B, T, BW]}
+    return k3, k4
+
+
+@contextlib.contextmanager
+def band_consensus_split(split: dict):
+    """Split the shift-banded consensus calls into `split` (seconds summed
+    over the calls): the host prep of each group on the host clock, and the
+    device time between CUDA events recorded around each call of K3, K4,
+    the vote epilogue and the K5 torch ops (run map, canonicalisation,
+    rebuild), read once the calls are done."""
+    import torch
+
+    from raven_tpu_torch.ops import band_cuda, consensus_band
+
+    parts = {
+        (consensus_band, "_prepare_group"): "host prep",
+        (band_cuda, "band_forward"): "K3",
+        (band_cuda, "mask_walk_votes"): "K4",
+        (band_cuda, "vote_tables"): "epilogue",
+        (consensus_band, "_run_map_device"): "K5 torch ops",
+        (consensus_band, "canonicalize_ins"): "K5 torch ops",
+        (consensus_band, "_rebuild_device"): "K5 torch ops",
+    }
+    events = []
+
+    def wrap(part, fn):
+        def wrapper(*a, **k):
+            if part == "host prep":
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    split[part] = split.get(part, 0.0) + time.perf_counter() - t0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            events.append((part, start, end))
+            return out
+        return wrapper
+
+    saved = {key: getattr(*key) for key in parts}
+    for key, part in parts.items():
+        setattr(*key, wrap(part, saved[key]))
+    try:
+        yield split
+    finally:
+        for key, fn in saved.items():
+            setattr(*key, fn)
+        torch.cuda.synchronize()
+        for part, start, end in events:
+            split[part] = split.get(part, 0.0) + start.elapsed_time(end) / 1e3
+
+
 @contextlib.contextmanager
 def polisher_stage_walls(walls: dict, consensus_calls: list):
     """Time the Polisher's stages (read mapping, fragment placement with
@@ -704,22 +962,26 @@ def polisher_stage_walls(walls: dict, consensus_calls: list):
             setattr(Polisher, n, fn)
 
 
-def phase_polish(device, work_dir, draft, genome_size=1_000_000):
-    """The main path with polish on phase 4's reads: -p 2 with the full-NW
-    device consensus in chunks of 8 x 256 fragment rows, every core for
-    the host stages.  `draft` is phase 4's unpolished contig, whose error
-    rate is measured against the truth span and orientation the polished
-    contig aligns to (a draft at ~5% error has too few exact 48-mers for
-    contig_ed's own anchoring, and its fallback aligns the whole genome in
-    both orientations, which takes minutes)."""
+def polish_run(device, work_dir, draft, flags, split=None, genome_size=1_000_000):
+    """The main path with polish on phase 4's reads with `flags`: one
+    contig of at least 0.97 of the genome at an edit-distance rate of
+    ED_RATE_CEILING or less, with the crossing DP on the card.  `draft` is
+    phase 4's unpolished contig, whose error rate is measured against the
+    truth span and orientation the polished contig aligns to (a draft at ~5%
+    error has too few exact 48-mers for contig_ed's own anchoring, and its
+    fallback aligns the whole genome in both orientations, which takes
+    minutes).  With `split`, the shift-banded consensus calls are split
+    into it (band_consensus_split)."""
     from raven_tpu_torch.io.readset import reverse_complement
     from raven_tpu_torch.ops.edit_distance import edit_distance_banded
     from raven_tpu_torch.utils.synth import _anchor_span, contig_ed
 
-    flags = ("-p", "2", "--device-poa-batches", "8", "-t", str(os.cpu_count()))
     walls: dict = {}
     calls: list = []
-    with polisher_stage_walls(walls, calls):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(polisher_stage_walls(walls, calls))
+        if split is not None:
+            stack.enter_context(band_consensus_split(split))
         run = cli_run(device, work_dir, genome_size, flags=flags)
     genome = run["genome"]
     lengths = run["lengths"]
@@ -746,23 +1008,51 @@ def phase_polish(device, work_dir, draft, genome_size=1_000_000):
     ) + " (fragments holds crossings)")
     for i, c in enumerate(calls):
         log(f"  consensus call {i}: {c['windows']} windows, {c['rows']} "
-            f"fragment rows ({-(-c['rows'] // 2048)} chunks of 2048 x 4 "
-            f"iterations), {c['seconds']:.3f} s")
+            f"fragment rows, {c['seconds']:.3f} s")
     log(
         f"polished contig {lengths[0]} bp: edit distance {ed} over a "
         f"{span} bp truth span = {rate * 100:.4f}% (unpolished -p 0 contig "
         f"{draft.size} bp: {ed0} over {span0} bp = {rate0 * 100:.4f}%; "
-        f"metric {t_ed:.1f} s); K2 launches {run['k2_launches']}; crossing-DP "
+        f"metric {t_ed:.1f} s); K2 launches {run['k2_launches']}; K3 launches "
+        f"{run['k3_launches']}; K4 launches {run['k4_launches']}; crossing-DP "
         f"runs on the card {run['dp_runs']}"
     )
     require(rate <= ED_RATE_CEILING,
             f"polished edit-distance rate {rate:.6f} above {ED_RATE_CEILING}")
-    require(run["k2_launches"] > 0, "the polish run launched K2 no time")
     require(run["dp_runs"] > 0, "the crossing DP did not run on the card")
-    require(all(r["engine"] == "device" for r in run["polish_rounds"]),
-            "a polish round left the device consensus")
     run["ed_rate"], run["ed_rate_unpolished"] = rate, rate0
     run["stage_walls"] = walls
+    run["consensus_calls"] = calls
+    return run
+
+
+def phase_polish(device, work_dir, draft):
+    """-p 2 with the full-NW device consensus in chunks of 8 x 256
+    fragment rows in both rounds, every core for the host stages."""
+    flags = ("-p", "2", "--device-poa-batches", "8", "-t", str(os.cpu_count()))
+    run = polish_run(device, work_dir, draft, flags)
+    require(run["k2_launches"] > 0, "the polish run launched K2 no time")
+    require(all(r["engine"] == "device" for r in run["polish_rounds"]),
+            "a polish round left the device consensus")
+    return run
+
+
+def phase_polish_default(device, work_dir, draft):
+    """-p 2 as users run it: the host POA in round 0, the shift-banded
+    consensus on the card (K3, K4, the K5 torch ops) in round 1."""
+    flags = ("-p", "2", "-t", str(os.cpu_count()))
+    split: dict = {}
+    run = polish_run(device, work_dir, draft, flags, split=split)
+    engines = [r["engine"] for r in run["polish_rounds"]]
+    require(engines == ["host", "device"], f"polish engines {engines}")
+    require(run["k3_launches"] > 0, "the default polish launched K3 no time")
+    require(run["k4_launches"] > 0, "the default polish launched K4 no time")
+    wall = run["consensus_calls"][-1]["seconds"]
+    log(f"  shift-banded consensus call {wall:.3f} s: " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in split.items()
+    ) + " (host prep on the host clock; the rest device time between CUDA "
+        "events around each call)")
+    run["band_split"] = split
     return run
 
 
@@ -801,8 +1091,8 @@ def run() -> dict:
         cwd=REPO,
     )
     try:
-        csrc.build_all(["sketch", "consensus"])
-        for name in ("sketch", "consensus"):
+        csrc.build_all(["sketch", "consensus", "band"])
+        for name in ("sketch", "consensus", "band"):
             log(f"nvcc {name}.cu: done {csrc.BUILD_SECONDS.get(name, 0.0):.2f} s "
                 f"after the builds started (0 when build/cuda/lib{name}.so was "
                 "up to date)")
@@ -822,7 +1112,9 @@ def run() -> dict:
     main_path, repeat_path = phase_cli(device, work)
     lay = phase_layout(device)
     k2 = phase_votes(device)
+    k3, k4 = phase_band(device)
     pol = phase_polish(device, work, main_path["contigs"][0])
+    dflt = phase_polish_default(device, work, main_path["contigs"][0])
 
     kernels = [{
         "name": "segment_sketch",
@@ -833,6 +1125,7 @@ def run() -> dict:
         "launches_overlap_stage": ov["launches"],
         "launches_repeat_cli": repeat_path["launches"],
         "launches_polish_cli": pol["launches"],
+        "launches_default_polish_cli": dflt["launches"],
         "equal": True,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
@@ -858,6 +1151,34 @@ def run() -> dict:
         "padded_bound_ms": k2["padded_bound_ms"],
         "cells": k2["cells"],
         "computed_cells": k2["computed_cells"],
+    }, {
+        "name": "band_forward",
+        "route": "cuda",
+        "source": "raven_tpu_torch/csrc/band.cu",
+        "replaces": "raven_tpu/ops/consensus_band.py:97",
+        "launches": dflt["k3_launches"],
+        "equal": True,
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": None,
+        "shape": k3["shape"],
+    }, {
+        "name": "band_walk_votes",
+        "route": "cuda",
+        "source": "raven_tpu_torch/csrc/band.cu",
+        "replaces": "raven_tpu/ops/consensus_band.py:172",
+        "launches": dflt["k4_launches"],
+        "equal": True,
+        "max_abs_err": k4["max_abs_err"],
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": None,
+        "shape": k4["shape"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(smi)

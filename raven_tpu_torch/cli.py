@@ -4,10 +4,11 @@ The torch port of raven_tpu/cli.py: the same flags and defaults, plus
 `--device` (default cuda).  Reference: RavenExe/src/main.cc:16-223 — same
 run order: [resume] -> load sequences -> construct -> assemble -> GFA dumps
 -> polish -> GFA dumps -> unitig FASTA to stdout.  Polishing (`-p` above 0)
-runs with the full-NW device consensus, which `--device-poa-batches B`
-selects; the consensus engines not ported yet (the shift-banded default
-that runs without `--device-poa-batches`, and `--device-banded-alignment`)
-exit with status 2.
+runs raven_tpu's hybrid schedule: host POA rounds, then the shift-banded
+device consensus in the last round; `--device-poa-batches B` selects the
+full-NW device consensus for every round instead.  The anchored banded
+engine (`--device-banded-alignment`) is not ported yet: asking for it with
+`-p` above 0 exits with status 2.
 """
 
 from __future__ import annotations
@@ -78,21 +79,13 @@ def main(argv: list[str] | None = None, timings: dict | None = None) -> int:
     if not args.sequences and not args.resume:
         build_parser().print_help()
         return 0
-    if args.polishing_rounds > 0 and (
-        args.device_poa_batches <= 0 or args.device_banded_alignment
-    ):
-        engine = (
-            "the anchored banded consensus (--device-banded-alignment)"
-            if args.device_banded_alignment
-            else "the shift-banded consensus (the default without "
-            "--device-poa-batches)"
-        )
+    if args.polishing_rounds > 0 and args.device_banded_alignment:
         print(
             f"[raven_tpu_torch::] error: -p {args.polishing_rounds} asks for "
-            f"{engine}, which arrives in a later slice of the port; run "
-            "with --device-poa-batches B (the full-NW device consensus) and "
-            "without --device-banded-alignment, or with -p 0 for an "
-            "unpolished assembly",
+            "the anchored banded consensus (--device-banded-alignment), which "
+            "arrives in a later slice of the port; run without "
+            "--device-banded-alignment, or with -p 0 for an unpolished "
+            "assembly",
             file=sys.stderr,
         )
         return 2

@@ -1,0 +1,294 @@
+"""Shift-banded window consensus: the CUDA kernels K3 (banded forward) and K4
+(walk and votes), their plain PyTorch versions, and the vote epilogue.
+
+`band_forward(cw, t_lens, fw_sh, q_lens, r0, T, BW)` is the port of
+raven_tpu/ops/consensus_band.py::band_forward, and `mask_walk_votes(moves,
+end_scores, row0_score, fw_sh, q_lens, r0, T, BW)` the port of the row scan of
+its mask_walk_votes (the per-fragment vote rows, before the per-window sums).
+On a CUDA tensor each launches its hand-written kernel in
+raven_tpu_torch/csrc/band.cu (see the note there for what bounds it and how
+the design answers that) or raises; on a CPU tensor each runs its plain
+version, the same function in torch ops.  Integer outputs are bit-identical
+to raven_tpu's.
+
+`vote_tables` is the epilogue (integer index_add_ into the per-window tables,
+where raven_tpu sums with one-hot float32 matmuls) and `band_votes` the walk
+and the epilogue together: the drop-in for raven_tpu's mask_walk_votes.
+
+`LAUNCHES` counts kernel launches per kernel, so a run can show that its main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG = -(1 << 20)
+MATCH, MISMATCH, GAP = 3, -5, -4
+KERNEL_BW = 256  # the band width the kernels take: 32 lanes of 8 band lanes
+LAUNCHES = {"band_forward": 0, "mask_walk_votes": 0}
+
+
+def _word_bits(x):
+    """int64 values in [0, 2^32) as int32 words of the same bits."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def band_forward_plain(cw, t_lens, fw_sh, q_lens, r0, T: int, BW: int):
+    """Slope-1 banded NW forward, one loop step per DP row over [B, BW].
+
+    cw [B, T] int32 per-fragment consensus rows (pad < 0), t_lens [B],
+    fw_sh [B, T+BW+1] uint8 shifted packed fragments, q_lens [B], r0 [B]
+    int32.  At DP row r the band lane u holds fragment column
+    j = r + u - BW/2 - r0.  Returns (moves [T, B, BW/16] int32, 2 bits a
+    lane, end_scores [T, B] int32, row0_score [B] int32); move codes 0 diag,
+    1 up or the free column j == 0, 2 left."""
+    B = cw.shape[0]
+    dev = cw.device
+    i32 = torch.int32
+    half = BW // 2
+    u = torch.arange(BW, dtype=i32, device=dev)[None, :]
+    u4 = u * -GAP
+    ql = q_lens[:, None]
+    j0 = u - half - r0[:, None]  # j at DP row 0
+    prev = torch.where((j0 >= 0) & (j0 <= ql), j0 * GAP, NEG).to(i32)
+    fch = (fw_sh.to(i32) & 3).contiguous()
+    neg_col = torch.full((B, 1), NEG, dtype=i32, device=dev)
+    shifts = 2 * torch.arange(16, dtype=torch.int64, device=dev)
+    in_rows = torch.arange(T, device=dev)[:, None] < t_lens[None, :]
+    moves = torch.empty((T, B, BW // 16), dtype=i32, device=dev)
+    ends = torch.empty((T, B), dtype=i32, device=dev)
+    for r in range(T):
+        j = j0 + (r + 1)
+        same = fch[:, r + 1 : r + 1 + BW] == cw[:, r : r + 1]
+        diag = prev + (same.to(i32) * (MATCH - MISMATCH) + MISMATCH)
+        up = torch.cat([prev[:, 1:], neg_col], dim=1) + GAP
+        take_diag = diag >= up
+        e = torch.where(take_diag, diag, up)
+        mv = (~take_diag).to(torch.int64)
+        # free consensus prefix: column j == 0 restarts at 0, before the
+        # closure
+        at0 = j == 0
+        e = torch.where(at0, 0, e)
+        mv = torch.where(at0, 1, mv)
+        # left closure within the band: cummax(e - u*GAP) + u*GAP
+        closed = torch.cummax(e + u4, dim=1).values - u4
+        left = closed > e
+        cur = torch.where(left, closed, e)
+        mv = torch.where(left, 2, mv)
+        cur = torch.where((j >= 0) & (j <= ql), cur, NEG)
+        ends[r] = torch.where((j == ql) & in_rows[r][:, None], cur, NEG).max(dim=1).values
+        moves[r] = _word_bits((mv.view(B, BW // 16, 16) << shifts).sum(dim=2))
+        prev = cur
+    return moves, ends, (q_lens * GAP).to(i32)
+
+
+def mask_walk_votes_plain(moves, end_scores, row0_score, fw_sh, q_lens, r0, T: int, BW: int):
+    """The traceback as a reverse row walk, one position per fragment.
+
+    Per fragment: the walk starts at row 0 when row0_score >= the best end
+    score, else one row below the first row holding it, at the lane of
+    column q_len (no walk when that lane is outside the band).  Per row r
+    from T down to 1: an insertion vote from the byte at the walker's lane p
+    when its move is left and j >= 1; then the walker slides to the highest
+    lane <= p whose move is not left and whose j >= 1 (none: no vote, the
+    walk ends), votes there (diag: its base, up: a deletion, both with its
+    weight), and moves on (diag: the same lane, up: the next one), ending
+    once the next column would be j <= 1 after a diag or the lane leaves the
+    band.  Row 0 gives one more insertion vote at the walker's lane when
+    j >= 1.  Returns (votes [B, T], ins [B, T+1]) int32, packed as raven_tpu
+    packs them: a vote 1 | col<<1 | w<<4 (col 0-3 base, 4 deletion), an
+    insertion 1 | base<<1 | w<<3, 0 where nothing was cast."""
+    B = q_lens.shape[0]
+    dev = q_lens.device
+    i64 = torch.int64
+    half = BW // 2
+    ends = end_scores.to(i64)
+    best, best_r = ends.max(dim=0).values, ends.argmax(dim=0)  # ties: the first best row
+    t0 = torch.where(row0_score.to(i64) >= best, 0, best_r + 1)
+    ql = q_lens.to(i64)
+    rz = r0.to(i64)
+    fw = fw_sh.to(i64)
+    u = torch.arange(BW, device=dev)[None, :]
+    shifts = 2 * torch.arange(16, dtype=i64, device=dev)
+    bidx = torch.arange(B, device=dev)
+    p = torch.full((B,), -1, dtype=i64, device=dev)  # the walker's lane, -1: none
+    votes = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    ins = torch.zeros((B, T + 1), dtype=torch.int32, device=dev)
+    for r in range(T, 0, -1):
+        u_init = ql + half + rz - r
+        p = torch.where((t0 == r) & (u_init >= 0) & (u_init < BW), u_init, p)
+        mv = ((moves[r - 1].to(i64)[:, :, None] >> shifts) & 3).view(B, BW)
+        fw_row = fw[:, r : r + BW]
+        ulo = 1 + half + rz - r  # the lowest lane with j >= 1
+        pc = p.clamp(min=0)
+        has_ins = (p >= 0) & (mv[bidx, pc] == 2) & (pc >= ulo)
+        ins[:, r] = torch.where(has_ins, 1 | (fw_row[bidx, pc] << 1), 0).to(torch.int32)
+        cand = (u <= p[:, None]) & (u >= ulo[:, None]) & (mv != 2)
+        q = torch.where(cand, u, -1).max(dim=1).values
+        qc = q.clamp(min=0)
+        mv_q = mv[bidx, qc]
+        fw_q = fw_row[bidx, qc]
+        col = torch.where(mv_q == 0, fw_q & 3, 4)
+        votes[:, r - 1] = torch.where(q >= 0, 1 | (col << 1) | ((fw_q >> 2) << 4), 0).to(
+            torch.int32
+        )
+        nxt = torch.where(mv_q == 0, qc, qc + 1)
+        p = torch.where((q >= 0) & (nxt < BW) & (nxt + r - half - rz > 1), nxt, -1)
+    u_init = ql + half + rz
+    p = torch.where((t0 == 0) & (u_init >= 0) & (u_init < BW), u_init, p)
+    ok = (p >= 0) & (p - half - rz >= 1)
+    ins[:, 0] = torch.where(ok, 1 | (fw[bidx, p.clamp(min=0)] << 1), 0).to(torch.int32)
+    return votes, ins
+
+
+def vote_tables(votes, ins, win_idx, NWIN: int):
+    """Sum per-fragment vote rows into the per-window tables with integer
+    index_add_.  votes [B, T], ins [B, T+1], win_idx [B] int32.  Returns
+    (base_votes [NWIN, T, 5], ins_raw [NWIN, T+1, 4], cover [NWIN, T])
+    int32; ins_raw is keyed by raw junction row (canonicalize_ins moves it
+    to the homopolymer run starts).  An entry that carries no vote adds 0 at
+    its own cell: one dump slot for all of them would put millions of
+    atomic adds on one address."""
+    B, T = votes.shape
+    dev = votes.device
+    w = win_idx.to(torch.int64)[:, None]
+    col = ((votes >> 1) & 7).to(torch.int64)
+    has = ((votes & 1) != 0) & (col <= 4)
+    cell = w * T + torch.arange(T, device=dev)[None, :]
+    base = torch.zeros(NWIN * T * 5, dtype=torch.int32, device=dev)
+    base.index_add_(
+        0, (cell * 5 + col.clamp(max=4)).reshape(-1),
+        torch.where(has, votes >> 4, 0).reshape(-1),
+    )
+    cover = torch.zeros(NWIN * T, dtype=torch.int32, device=dev)
+    cover.index_add_(0, cell.reshape(-1), has.to(torch.int32).reshape(-1))
+    junction = w * (T + 1) + torch.arange(T + 1, device=dev)[None, :]
+    ins_raw = torch.zeros(NWIN * (T + 1) * 4, dtype=torch.int32, device=dev)
+    ins_raw.index_add_(
+        0, (junction * 4 + ((ins >> 1) & 3)).reshape(-1),
+        torch.where((ins & 1) != 0, ins >> 3, 0).reshape(-1),
+    )
+    return base.view(NWIN, T, 5), ins_raw.view(NWIN, T + 1, 4), cover.view(NWIN, T)
+
+
+def _check(named, device):
+    for name, x, dtype, shape in named:
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise TypeError(
+                f"{name} must be {list(shape)} {dtype}, got {x.dtype} {tuple(x.shape)}"
+            )
+        if x.device != device:
+            raise ValueError("all inputs must lie on one device")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_bw(T: int, BW: int):
+    if BW != KERNEL_BW or T < 1:
+        raise ValueError(f"the band kernels take BW = {KERNEL_BW} and T >= 1, got BW={BW}, T={T}")
+
+
+_FNS = None
+
+
+def _fns():
+    """The launchers' C functions, typed once per process."""
+    global _FNS
+    if _FNS is None:
+        from raven_tpu_torch import csrc
+
+        lib = csrc.load("band")
+        fwd = lib.raven_band_forward_launch
+        fwd.restype = ctypes.c_int
+        fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        walk = lib.raven_band_walk_launch
+        walk.restype = ctypes.c_int
+        walk.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        _FNS = lib, fwd, walk
+    return _FNS
+
+
+def _forward_kernel(cw, t_lens, fw_sh, q_lens, r0, T: int, BW: int):
+    from raven_tpu_torch import csrc
+
+    B = cw.shape[0]
+    i32 = torch.int32
+    _check_bw(T, BW)
+    _check((
+        ("cw", cw, i32, (B, T)), ("t_lens", t_lens, i32, (B,)),
+        ("fw_sh", fw_sh, torch.uint8, (B, T + BW + 1)), ("q_lens", q_lens, i32, (B,)),
+        ("r0", r0, i32, (B,)),
+    ), cw.device)
+    dev = cw.device
+    moves = torch.empty((T, B, BW // 16), dtype=i32, device=dev)
+    ends = torch.empty((T, B), dtype=i32, device=dev)
+    row0 = torch.empty(B, dtype=i32, device=dev)
+    if B == 0:
+        return moves, ends, row0
+    lib, fwd, _ = _fns()
+    err = fwd(
+        cw.data_ptr(), t_lens.data_ptr(), fw_sh.data_ptr(), q_lens.data_ptr(),
+        r0.data_ptr(), moves.data_ptr(), ends.data_ptr(), row0.data_ptr(), B, T,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    csrc.check(lib, err, "banded forward kernel launch")
+    LAUNCHES["band_forward"] += 1
+    return moves, ends, row0
+
+
+def _walk_kernel(moves, end_scores, row0_score, fw_sh, q_lens, r0, T: int, BW: int):
+    from raven_tpu_torch import csrc
+
+    B = q_lens.shape[0]
+    i32 = torch.int32
+    _check_bw(T, BW)
+    _check((
+        ("moves", moves, i32, (T, B, BW // 16)), ("end_scores", end_scores, i32, (T, B)),
+        ("row0_score", row0_score, i32, (B,)),
+        ("fw_sh", fw_sh, torch.uint8, (B, T + BW + 1)), ("q_lens", q_lens, i32, (B,)),
+        ("r0", r0, i32, (B,)),
+    ), q_lens.device)
+    dev = q_lens.device
+    votes = torch.empty((B, T), dtype=i32, device=dev)
+    ins = torch.empty((B, T + 1), dtype=i32, device=dev)
+    if B == 0:
+        return votes, ins
+    lib, _, walk = _fns()
+    err = walk(
+        moves.data_ptr(), end_scores.data_ptr(), row0_score.data_ptr(), fw_sh.data_ptr(),
+        q_lens.data_ptr(), r0.data_ptr(), votes.data_ptr(), ins.data_ptr(), B, T,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    csrc.check(lib, err, "band walk kernel launch")
+    LAUNCHES["mask_walk_votes"] += 1
+    return votes, ins
+
+
+def band_forward(cw, t_lens, fw_sh, q_lens, r0, T: int, BW: int):
+    """K3 on a CUDA tensor, its plain version on a CPU tensor."""
+    if cw.device.type == "cuda":
+        return _forward_kernel(cw, t_lens, fw_sh, q_lens, r0, T, BW)
+    if cw.device.type == "cpu":
+        return band_forward_plain(cw, t_lens, fw_sh, q_lens, r0, T, BW)
+    raise ValueError(f"no banded forward kernel for device {cw.device}")
+
+
+def mask_walk_votes(moves, end_scores, row0_score, fw_sh, q_lens, r0, T: int, BW: int):
+    """K4 on a CUDA tensor, its plain version on a CPU tensor."""
+    if q_lens.device.type == "cuda":
+        return _walk_kernel(moves, end_scores, row0_score, fw_sh, q_lens, r0, T, BW)
+    if q_lens.device.type == "cpu":
+        return mask_walk_votes_plain(moves, end_scores, row0_score, fw_sh, q_lens, r0, T, BW)
+    raise ValueError(f"no band walk kernel for device {q_lens.device}")
+
+
+def band_votes(moves, end_scores, row0_score, fw_sh, q_lens, r0, win_idx, T: int, BW: int,
+               NWIN: int):
+    """The walk and the per-window sums: raven_tpu's mask_walk_votes.
+    Returns (base_votes [NWIN, T, 5], ins_raw [NWIN, T+1, 4], cover [NWIN,
+    T]) int32."""
+    votes, ins = mask_walk_votes(moves, end_scores, row0_score, fw_sh, q_lens, r0, T, BW)
+    return vote_tables(votes, ins, win_idx, NWIN)

@@ -3,10 +3,11 @@
 A copy of raven_tpu/polish/polisher.py with four changes: the mapping
 index is the port's engine on the polisher's device; the crossing DP runs
 on that device through ops/dp_device.py unless it is the CPU (and raises
-on failure); the consensus routes by DeviceCfg alone, to the port's
-full-NW device consensus when poa_batches > 0 and to NotImplementedError
-for the engines not ported yet; the host fork pool checks whether CUDA is
-initialised.
+on failure); the consensus routes by DeviceCfg alone: the full-NW device
+consensus when poa_batches > 0, NotImplementedError for the anchored banded
+engine (banded_alignment, not ported yet), else the shift-banded device
+consensus (ops/consensus_band.py, raven_tpu's default engine) whenever the
+device is asked for; the host fork pool checks whether CUDA is initialised.
 
 Reference behaviour being reproduced (use site RavenLib/src/polish.cc:43-51
 plus the racon library dependency it drives):
@@ -413,10 +414,11 @@ class Polisher:
     def _run_consensus(self, jobs):
         """Dispatch window consensus jobs: the batched full-NW device
         consensus when DeviceCfg.poa_batches > 0 (the reference's CUDA-POA
-        analog, chunks of poa_batches * 256 fragment rows), C++/python POA
-        on the host when the device is not asked for.  The device engines
-        not ported yet (the shift-banded default, the anchored banded NW)
-        raise NotImplementedError."""
+        analog, chunks of poa_batches * 256 fragment rows), the shift-banded
+        device consensus when the device is asked for without it, C++/python
+        POA on the host when it is not.  The anchored banded engine
+        (DeviceCfg.banded_alignment) is not ported yet and raises
+        NotImplementedError."""
         use_dev = self.use_device_consensus
         dc = self.device_cfg
         if dc is not None and dc.poa_batches > 0:
@@ -426,32 +428,29 @@ class Polisher:
         if use_dev is None:
             use_dev = self.device.type != "cpu"
         if use_dev and jobs:
-            if dc is None or dc.poa_batches <= 0:
-                raise NotImplementedError(
-                    "the shift-banded device consensus (raven_tpu's default "
-                    "polish engine, ops/consensus_band.py) is not ported yet "
-                    "(a later slice of the port); set DeviceCfg.poa_batches "
-                    "(--device-poa-batches) for the full-NW device consensus"
-                )
-            if dc.banded_alignment:
+            if dc is not None and dc.banded_alignment:
                 raise NotImplementedError(
                     "the anchored banded device consensus "
                     "(--device-banded-alignment) is not ported yet (a later "
                     "slice of the port)"
                 )
-            from raven_tpu_torch.ops.consensus_device import (
-                device_window_consensus,
-            )
-
             windows = [
                 (backbone, frag_codes, weights, spans)
                 for _, _, backbone, frag_codes, weights, spans in jobs
             ]
             self.last_engine = "device"
-            return device_window_consensus(
-                windows, iterations=4, chunk=256 * dc.poa_batches,
-                device=self.device,
-            )
+            if dc is not None and dc.poa_batches > 0:
+                from raven_tpu_torch.ops.consensus_device import (
+                    device_window_consensus,
+                )
+
+                return device_window_consensus(
+                    windows, iterations=4, chunk=256 * dc.poa_batches,
+                    device=self.device,
+                )
+            from raven_tpu_torch.ops.consensus_band import band_window_consensus
+
+            return band_window_consensus(windows, iterations=4, device=self.device)
         self.last_engine = "host"
         return self._run_poa_host(jobs)
 

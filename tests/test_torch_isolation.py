@@ -1,7 +1,7 @@
 """raven_tpu_torch stands alone: every module imports with jax blocked and
 loads nothing of raven_tpu; the default device is CUDA and raises without
-it; polishing with a consensus engine not ported yet (-p above 0 without
---device-poa-batches) exits with status 2 instead of being skipped."""
+it; polishing with the consensus engine not ported yet (-p above 0 with
+--device-banded-alignment) exits with status 2 instead of being skipped."""
 
 import os
 import subprocess
@@ -65,10 +65,11 @@ def test_polishing_exits_with_status_2(tmp_path, capsys):
 
     reads = tmp_path / "reads.fa"
     reads.write_text(">r0\nACGTACGTACGT\n")
-    assert cli.main([str(reads), "-p", "1", "--device", "cpu"]) == 2
+    args = [str(reads), "-p", "1", "--device-banded-alignment", "--device", "cpu"]
+    assert cli.main(args) == 2
     assert "later slice" in capsys.readouterr().err
     # the default -p is 2, as in the reference, and is refused the same way
-    r = _run(["-m", "raven_tpu_torch", str(reads), "--device", "cpu"])
+    r = _run(["-m", "raven_tpu_torch", str(reads), "--device-banded-alignment", "--device", "cpu"])
     assert r.returncode == 2
     assert "later slice" in r.stderr
     assert r.stdout == ""

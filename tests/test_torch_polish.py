@@ -1,9 +1,10 @@
 """The port's polish path (raven_tpu_torch.polish, the -p N CLI) vs
 raven_tpu's on the same inputs: the Polisher with the full-NW device
 consensus and the device crossing DP (DeviceCfg poa_batches and
-alignment_batches), the host POA round, and the CLI's `-p 2
---device-poa-batches 1 --device-alignment-batches 1` contig FASTA, byte
-for byte; the consensus engines not ported yet exit with status 2."""
+alignment_batches), with the shift-banded device consensus (the default
+engine), the host POA round, and the CLI's contig FASTA for `-p 2` and `-p 2
+--device-poa-batches 1 --device-alignment-batches 1`, byte for byte; the
+anchored banded engine, not ported yet, raises or exits with status 2."""
 
 import numpy as np
 import pytest
@@ -40,6 +41,7 @@ def _one_torch_thread():
 _JAX_ENV = (
     "RAVEN_TPU_CONSENSUS_ENGINE", "RAVEN_TPU_CONSENSUS_ITERS",
     "RAVEN_TPU_SHARDED_POLISH", "RAVEN_TPU_BANDED", "RAVEN_TPU_PALLAS_CONSENSUS",
+    "RAVEN_TPU_CONSENSUS_GROUP",
 )
 
 
@@ -106,19 +108,24 @@ def test_polisher_host_poa_round_matches_jax(setup):
     assert tp.last_engine == "host"
 
 
+def test_polisher_shift_banded_consensus_matches_jax(setup):
+    """The device asked for without poa_batches: both polishers take the
+    shift-banded consensus (and the device crossing DP)."""
+    tp, got, want = _polish_both(setup, dict(device="cpu", use_device=True), dict(use_device=True))
+    _same(got, want)
+    assert tp.last_engine == "device"
+
+
 def test_polisher_unported_engines_raise(setup):
     reads, draft = setup
     rs = TReadSet.from_sequences(reads)
-    # the shift-banded default: the device asked for without poa_batches
-    p = TPolisher(device="cpu", use_device=True)
-    with pytest.raises(NotImplementedError, match="shift-banded"):
-        p.polish([("Ctg0", draft)], rs)
-    p = TPolisher(
-        device="cpu",
-        device_cfg=tconfig.DeviceCfg(poa_batches=1, banded_alignment=True),
-    )
-    with pytest.raises(NotImplementedError, match="banded"):
-        p.polish([("Ctg0", draft)], rs)
+    for cfg in (
+        tconfig.DeviceCfg(poa_batches=1, banded_alignment=True),
+        tconfig.DeviceCfg(banded_alignment=True),
+    ):
+        p = TPolisher(device="cpu", use_device=True, device_cfg=cfg)
+        with pytest.raises(NotImplementedError, match="banded"):
+            p.polish([("Ctg0", draft)], rs)
 
 
 @pytest.fixture(scope="module")
@@ -140,9 +147,9 @@ def _globals():
     ]
 
 
-def test_cli_polish_contigs_byte_identical(reads_path, monkeypatch, capsys):
-    flags = ["-p", "2", "--device-poa-batches", "1", "--device-alignment-batches", "1",
-             "--disable-checkpoints"]
+def _run_both_clis(reads_path, flags, monkeypatch, capsys):
+    """Both CLIs on the same reads; returns (port stdout, raven_tpu stdout,
+    the port's timings)."""
     before = _globals()
     timings = {}
     # both CLIs set their package's process-wide settings (-t, -u): restore
@@ -162,22 +169,40 @@ def test_cli_polish_contigs_byte_identical(reads_path, monkeypatch, capsys):
         assert tconfig.GLOBALS.num_threads == jconfig.GLOBALS.num_threads == 1
     assert _globals() == before
     assert got.startswith(">")
+    return got, want, timings
+
+
+def test_cli_polish_contigs_byte_identical(reads_path, monkeypatch, capsys):
+    flags = ["-p", "2", "--device-poa-batches", "1", "--device-alignment-batches", "1",
+             "--disable-checkpoints"]
+    got, want, timings = _run_both_clis(reads_path, flags, monkeypatch, capsys)
     assert got == want
     assert [r["engine"] for r in timings["polish_rounds"]] == ["device", "device"]
     assert timings["polish_s"] > 0
 
 
+def test_cli_default_polish_contigs_byte_identical(reads_path, monkeypatch, capsys):
+    """`-p 2` without --device-poa-batches runs (no longer refused): POA
+    rounds, then the shift-banded consensus in the last round when the
+    device is a card; with --device cpu (and raven_tpu on a CPU backend)
+    both rounds take the host POA."""
+    flags = ["-p", "2", "--disable-checkpoints"]
+    got, want, timings = _run_both_clis(reads_path, flags, monkeypatch, capsys)
+    assert got == want
+    assert [r["engine"] for r in timings["polish_rounds"]] == ["host", "host"]
+
+
 @pytest.mark.parametrize(
     "extra",
-    [[], ["--device-poa-batches", "1", "--device-banded-alignment"]],
-    ids=["shift-banded-default", "banded-alignment"],
+    [["--device-poa-batches", "1", "--device-banded-alignment"], ["--device-banded-alignment"]],
+    ids=["banded-alignment", "banded-alignment-default"],
 )
 def test_cli_unported_engines_exit_2(reads_path, extra, capsys):
     before = _globals()
     assert tcli.main([str(reads_path), "-p", "2", "--device", "cpu", *extra]) == 2
     err = capsys.readouterr().err
     assert "later slice" in err
-    assert ("anchored banded" if extra else "shift-banded") in err
+    assert "anchored banded" in err
     assert _globals() == before  # refused before any setting changes
 
 
