@@ -46,8 +46,10 @@ failure:
      bank's first group of 128 windows as the shift-banded consensus lays
      it out, [B, T, BW] = [4096, 640, 256] with 256 padded rows (qlen 0),
      a ragged B = 1237, partial fragments placed at r0 > 0 with weights
-     above the cap of 63, fragments longer than the band reaches, and walks
-     from row 0; median times over CUDA events beside the bound;
+     above the cap of 63, fragments longer than the band reaches, insertion
+     runs of 20-60 bases whose left moves cross K3's 16-lane strips, and
+     walks from row 0; median times over CUDA events beside the bound, K3's
+     and K4's SASS loop sizes and K4's serial floor;
   8. the main path with polish: `raven_tpu_torch.cli.main([reads, "-p",
      "2", "--device-poa-batches", "8", "-t", <cores>, ...])` on phase 4's
      1 Mb x 30x reads, which must give one contig of at least 0.97 of the
@@ -56,9 +58,9 @@ failure:
      on the card;
   9. the default polish: the same reads through `-p 2 -t <cores>` (host
      POA in round 0, the shift-banded consensus on the card in round 1),
-     with the same gate, K3, K4 and the crossing DP run on the card, and
-     the consensus call split into host prep, K3, K4, the epilogue and the
-     K5 torch ops;
+     with the same gate, K3 and K4 launched 64 times each, the crossing DP
+     run on the card, and the consensus call split into host prep, K3, K4,
+     the epilogue and the K5 torch ops;
  10. a `kernels` JSON line, the card's name and power limit, and the last
      line {"ok": true, "device": {...}}.
 """
@@ -103,6 +105,17 @@ K3_INSTR_PER_CELL = 10
 # shift and mask (2), the left test (1), the vote's packing (2), the next
 # lane (1).
 K4_INSTR_PER_ROW = 6
+# K4's walk is one chain per fragment: from the walker's lane to the next
+# row's, its common step (the move at the walker is not left) is the move
+# word's shared-memory address (2 instructions), its load (~30 cycles on
+# Hopper), the move's extraction and test (3) and the next lane and its
+# checks (4): 9 dependent integer instructions of at least 4 cycles (the
+# shortest dependent latency of Hopper's integer pipes) and one load,
+# at 1.98 GHz.  Printed beside the bound as information: the fragments'
+# walks run side by side, so a launch takes at least its longest walk.
+K4_CHAIN_CYCLES = 9 * 4 + 30
+SM_CLOCK_HZ = 1.98e9
+BAND_DEFAULT_LAUNCHES = 64  # 16 groups of up to 128 windows x 4 iterations
 BAND_T, BAND_BW = 640, 256  # the shift-banded consensus's t_pad and band
 ED_RATE_CEILING = 0.0005  # tests/test_synthetic_golden.py
 
@@ -251,6 +264,79 @@ def band_walk_bound(votes, B: int, T: int, BW: int) -> tuple[float, str, dict]:
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, {"bytes": nbytes, "int_ops": ops, "voted_rows": voted,
                                      "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
+def sass_loops(so_path: str, kernel: str) -> tuple[int, list]:
+    """What cuobjdump -sass shows of `kernel` in the library at `so_path`:
+    its instruction count and its loops as (instructions, first address,
+    last address, opcode counts), largest first; a loop is the span from a
+    backward branch's target to the branch."""
+    import re
+    import shutil
+    from collections import Counter
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    body = next(blk for blk in re.split(r"\n\s*Function : ", out)[1:]
+                if kernel in blk.split("\n", 1)[0])
+    instrs, labels, pending = [], {}, []
+    for line in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            instrs.append((addr, m.group(2)))
+            labels.update((lab, addr) for lab in pending)
+            pending = []
+    loops = []
+    for addr, text in instrs:
+        if not re.search(r"\bBRA\b", text):
+            continue
+        lab = re.search(r"\.L_x_\d+", text)
+        hexa = re.search(r"0x([0-9a-f]+)", text.split("BRA", 1)[1])
+        tgt = labels.get(lab.group(0)) if lab else (int(hexa.group(1), 16) if hexa else None)
+        if tgt is not None and tgt < addr:
+            ops = Counter(re.sub(r"^@!?U?P\w+ ", "", t).split(" ")[0].split(".")[0]
+                          for a, t in instrs if tgt <= a <= addr)
+            loops.append((sum(ops.values()), tgt, addr, ops))
+    return len(instrs), sorted(loops, key=lambda lp: lp[:3], reverse=True)
+
+
+# compare, select, logic and min/max opcodes: Hopper's integer ALU pipe
+# runs them, one warp instruction every other cycle a scheduler
+ALU_PIPE_OPS = ("ISETP", "SEL", "LOP3", "VIMNMX", "VIADDMNMX")
+
+
+def log_band_sass() -> None:
+    """K3's and K4's SASS: instructions, those of each loop, and the
+    largest loop's opcodes; K3's row loop over 8 is its instructions a
+    cell at one closure round (a warp instruction covers 2 fragments x 16
+    lanes of 16 cells = 512 cells, so 32 lane-instructions over 256)."""
+    from raven_tpu_torch import csrc
+
+    so = os.path.join(csrc.build_dir(), "libband.so")
+    for kernel in ("band_forward_kernel", "band_walk_kernel"):
+        try:
+            n, loops = sass_loops(so, kernel)
+        except (OSError, subprocess.SubprocessError, StopIteration) as e:
+            log(f"  SASS of {kernel}: not read ({e!r})")
+            continue
+        spans = ", ".join(f"{k} at {a:#x}-{b:#x}" for k, a, b, _ in loops[:4])
+        log(f"  SASS of {kernel}: {n} instructions; loops (instructions): {spans}")
+        if not loops:
+            continue
+        ops = loops[0][3]
+        alu = sum(ops[o] for o in ALU_PIPE_OPS)
+        log(f"  its largest loop: {alu} of {loops[0][0]} on the integer ALU pipe "
+            f"({', '.join(f'{o} {c}' for o, c in ops.most_common(8))})")
+        if kernel == "band_forward_kernel":
+            log(f"  K3 row loop: {loops[0][0]} SASS instructions a warp a row (static, "
+                f"one closure round) = {loops[0][0] / 16:.2f} a cell, against the "
+                f"bound's {K3_INSTR_PER_CELL}")
 
 
 # ------------------------------------------------------------------ phases
@@ -783,6 +869,22 @@ def band_cases():
         for bb, fr, wt in windows[128:256]
     ]
     cases.append(("fragments past the band", layout(doubled, q_pad=1536)))
+    # runs of 20-60 bases the consensus lacks, 1-3 a fragment: their left
+    # moves cross K3's 16-lane strips on one band row
+    rng = np.random.default_rng(9)
+    runs = []
+    for bb, fr, wt in windows[256:384]:
+        frs, wts = [], []
+        for f, w in zip(fr, wt):
+            for _ in range(int(rng.integers(1, 4))):
+                at = int(rng.integers(1, f.size))
+                n_ins = int(rng.integers(20, 61))
+                f = np.concatenate([f[:at], rng.integers(0, 4, n_ins).astype(np.uint8), f[at:]])
+                w = np.concatenate([w[:at], np.full(n_ins, 30, np.uint8), w[at:]])
+            frs.append(f)
+            wts.append(w)
+        runs.append((bb, frs, wts))
+    cases.append(("insertion runs across strips", layout(runs)))
     # all-A consensus rows of 0, 1 or 640 bases against 50 C's: 50 * GAP is
     # the best end score or ties it, so every walk starts at row 0
     n = 1024
@@ -865,6 +967,15 @@ def phase_band(device):
                 f"{K4_INSTR_PER_ROW} = {p4['int_ops']} integer instructions at "
                 f"{INT_INSTR_PER_S:.4g}/s = {p4['ops_ms']:.4f} ms"
             )
+            walk = int((wv[0] != 0).sum(dim=1).max()) + 1
+            floor4 = walk * K4_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
+            log(
+                f"  K4 serial floor (information): the longest walk, {walk} rows, x "
+                f"{K4_CHAIN_CYCLES} dependent cycles a row at {SM_CLOCK_HZ:.3g} Hz = "
+                f"{floor4:.4f} ms; at T = {T} rows "
+                f"{T * K4_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3:.4f} ms"
+            )
+            log_band_sass()
             k3 = {"max_abs_err": err3, "ms": ms3, "plain_ms": plain3, "bound_ms": b3,
                   "bound_by": by3, "shape": [B, T, BW]}
             k4 = {"max_abs_err": err4, "ms": ms4, "plain_ms": plain4, "bound_ms": b4,
@@ -1045,8 +1156,9 @@ def phase_polish_default(device, work_dir, draft):
     run = polish_run(device, work_dir, draft, flags, split=split)
     engines = [r["engine"] for r in run["polish_rounds"]]
     require(engines == ["host", "device"], f"polish engines {engines}")
-    require(run["k3_launches"] > 0, "the default polish launched K3 no time")
-    require(run["k4_launches"] > 0, "the default polish launched K4 no time")
+    require(run["k3_launches"] == run["k4_launches"] == BAND_DEFAULT_LAUNCHES,
+            f"the default polish launched K3 {run['k3_launches']} and K4 "
+            f"{run['k4_launches']} times, not {BAND_DEFAULT_LAUNCHES} each")
     wall = run["consensus_calls"][-1]["seconds"]
     log(f"  shift-banded consensus call {wall:.3f} s: " + ", ".join(
         f"{k} {v:.4f} s" for k, v in split.items()

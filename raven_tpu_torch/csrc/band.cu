@@ -39,25 +39,83 @@
 // up add fused with the max, the which-won predicate, the closure as the
 // recurrence max(e, left + GAP) in one add-max, the left predicate, the
 // domain's compare and select, one pack of the move bits); 671 M cells a
-// production launch ([4096, 640, 256]) against ~193 MB of traffic.  K4: its traffic (the end scores, the
+// production launch ([4096, 640, 256]) against ~193 MB of traffic.  What
+// held the first, simple version at 16% of that: a 5-step __shfl_up_sync
+// scan for the left closure and three more shuffles a row, all on the
+// row's critical path, for 8 cells a lane; an unaligned shared-memory byte
+// read, the j == 0, domain and j == qlen tests and the move rewrite in every
+// cell (~25 instructions a cell).  K4: its traffic (the end scores, the
 // fragment rows, a move word a walked row, the vote rows) and the walk's
-// serial length: a few dependent steps a row, 640 rows a fragment.
+// serial length: a few dependent steps a row, 640 rows a fragment.  What
+// held the first version at 2.4% of its bytes bound: each walked row's move
+// word was a DRAM round trip (rows of a fragment lie B * 64 bytes apart, and
+// K3 has just written 168 MB past the 50 MB L2) sent only after the
+// previous row's shuffle, ballot and __clz chain; and the best-row pass read
+// one end score a lane at a 4B-byte stride.
 //
-// Design (a first, simple version, for the engine's band of BW = 256):
-//   * K3: one warp a fragment, four fragments a block; lane l holds band
-//     lanes 8l .. 8l + 7 of the previous row in registers.  up reads the
-//     next lane's first value by one __shfl_down_sync; the closure's prefix
-//     max is a strip max plus a 5-step warp scan; the fragment's base codes
-//     and the consensus codes sit in shared memory; each row's moves are
-//     packed by a shuffle into whole words (64 bytes a row) and its end
-//     score is written by the lane that holds column qlen.
-//   * K4: one warp a fragment, the same lane layout; the walker's lane p is
-//     warp-uniform.  Per walked row each lane reads its part of the row's
-//     move words, the move at p comes by one shuffle, the slide is a ballot
-//     over the lanes' candidate masks (the highest lane with a candidate,
-//     then its highest candidate by __clz), and the fragment's bytes sit in
-//     shared memory.  Votes and insertions are kept one row a lane and
-//     written 32 rows at a time.
+// Design (the engine's band of BW = 256):
+//   * K3, the layout.  16 lanes of a warp take a fragment, so a warp runs
+//     two; lane l holds band lanes 16l .. 16l + 15 of the previous row in
+//     registers.  Against one fragment a warp at 8 cells a lane, this halves
+//     the work a row that does not scale with the cells (the shuffles, the
+//     closure's rounds, the edge lanes' branches, the stores); measured on
+//     an H100 at [4096, 640, 256], it was the faster of the two.
+//   * K3, the closure.  The cummax is the linear-gap recurrence D[u] =
+//     max(e[u], D[u-1] + GAP), the form K2 uses: the same integers and ties
+//     ("left when closed > e" is D[u] != e[u]).  Each lane runs it over its
+//     strip from nothing, keeping only the last value (one VIADDMNMX a
+//     cell); the carries between lanes are then resolved to their fixed
+//     point: each round one __shfl_up_sync of the lanes' last values, last =
+//     max(strip last, carry + 16 GAP), and __any_sync on whether a lane
+//     changed; the strip then runs again from its carry (one more VIADDMNMX
+//     a cell), which gives the values and the left moves.  Exact by
+//     construction: the lanes form a chain, so a round in which nothing
+//     changes is the fixed point.  Started from the strips alone, it needs a
+//     round a lane wherever the band runs past column qlen + 1: the carry
+//     into those lanes (near NEG, every move left) slides down 4 a column
+//     across the rest of the band.  So lanes whose columns are all past qlen
+//     + 1 start at a high guess, and keep it while their carry exceeds NEG +
+//     3 + 4 BW (then every cell to the band's end is left whatever the
+//     carry's exact value, and the values are masked to NEG); when no lane
+//     of the row holds a column at or below qlen + 1, they start from their
+//     strip.  Most rows then take one round.  No warp scan.  Lane
+//     pipelining as in K2 does not carry over: in band coordinates up comes
+//     from lane u + 1 of the previous row and left from lane u - 1 of this
+//     one, so no skew of rows across lanes serves both.
+//   * K3, the cells.  e and the diag-won predicate come from __vibmax_s32;
+//     the score from the lane's 16 bases kept 2-bit packed in a register and
+//     matched all at once by XOR against the replicated consensus code; the
+//     band has slope 1, so the next row's bases are this lane's shifted by
+//     one, the new one from the next lane by one shuffle.  The up and left
+//     moves are gathered one bit a cell and spread to 2-bit fields once a
+//     row.  The j == 0 reset, the domain mask (a bit mask of the strip's
+//     cells in the fragment) and the end score (a tree of selects, not a
+//     register index, which would go to local memory) touch one or two
+//     lanes a row and run in branches only those lanes take.  Each lane
+//     stores its 16 move fields as one word: a fragment's row, 64 bytes, in
+//     one coalesced store.  Values stay int32: 16-bit pairs (K2's route)
+//     would need the lanes outside the fragment, whose moves are outputs,
+//     mapped into 16 bits with every comparison kept; left for a later
+//     change.  What bounds K3 in this form (cuobjdump -sass, which
+//     chip_smoke.py prints): most of its row loop's instructions are
+//     compares, selects, logic and min/max, which the integer ALU pipe
+//     takes one warp instruction every other cycle.
+//   * K4.  8 lanes of a warp take a fragment, four a warp.  The move rows
+//     are staged ahead of the walker: 32 rows of the fragment (2 KB) a
+//     chunk, copied by cp.async into shared memory, double-buffered one
+//     chunk ahead on a schedule the warp shares, only chunks that hold a
+//     row at or below t0 - 1, and none once the walk ends.  The walk itself
+//     is scalar, the same in each of the 8 lanes: the move word at the
+//     walker from shared memory, and when that move is not left (most rows)
+//     the walker's lane is the vote's; only a left move scans the row's
+//     words below the walker for the slide target.  No shuffle or vote is
+//     on the walk's chain, and neither are the fragment's bytes: a row keeps
+//     the vote's lane and move, and the 8 lanes read the bytes and pack the
+//     votes when they write them.  The rows go in blocks of 8, unrolled, so
+//     the per-row work around the walk is a test of the start row and a
+//     select into the lane that writes the row; the block boundaries carry
+//     the chunk schedule and the writes.  The 8 lanes also copy the chunks.  The best row comes from the block's 16 fragments read
+//     together: 64 contiguous bytes an end-score row.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // (see raven_tpu_torch/csrc/__init__.py); each launcher returns the CUDA
@@ -74,20 +132,66 @@ constexpr int kMatch = 3;
 constexpr int kMismatch = -5;
 constexpr int kGap = -4;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kWarps = 4;          // fragments a block, one warp each
-constexpr int C = 8;               // band lanes a lane of the warp
-constexpr int BW = 32 * C;         // band lanes
+constexpr int BW = 256;            // band lanes
+constexpr int kWarps = 4;          // K3: warps a block
+constexpr int kFwdGroup = 16;      // K3: lanes of the warp a fragment takes
+constexpr int kFwdFrags = 32 / kFwdGroup;
+constexpr int C = BW / kFwdGroup;  // K3: band lanes a lane holds
+static_assert(C == 16, "K3 stores one 16-lane move word a lane");
 constexpr int kHalf = BW / 2;
-constexpr int kWords = BW / 16;    // move words a row, 2 lanes of the warp each
+constexpr int kWords = BW / 16;    // move words a row
+// the closure's carry into lane 0: never wins, and never wraps when GAP is
+// added a band's width of times
+constexpr int kNone = -(1 << 30);
+// a lane whose columns are all past qlen + 1 holds values within 8 of NEG:
+// a carry above kHigh makes every cell left up to the band's end
+constexpr int kHigh = kNeg + 3 - kGap * BW;
+constexpr int kGuess = 0;          // the high guess (any value above kHigh)
+constexpr int kChunk = 32;         // move rows a K4 stage holds
+constexpr int kChunkBytes = kChunk * kWords * 4;
+constexpr int kGroup = 8;          // K4: lanes of the warp a fragment takes
+constexpr int kFragsPerWarp = 32 / kGroup;
+constexpr int kWalkWarps = 4;      // K4: warps a block
+constexpr int kWalkFrags = kWalkWarps * kFragsPerWarp;
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 
-// shared memory a warp uses: the fragment row [T + BW + 1] (both kernels)
-// and the consensus codes [T] (K3)
+// shared memory a fragment uses: K3 its base codes [T + BW + 1] and the
+// consensus codes [T]; K4 two move chunks and the fragment row
 __host__ __device__ constexpr int forward_bytes(int T) {
   return round16(T + BW + 1) + round16(T);
 }
-__host__ __device__ constexpr int walk_bytes(int T) { return round16(T + BW + 1); }
+__host__ __device__ constexpr int walk_bytes(int T) {
+  return 2 * kChunkBytes + round16(T + BW + 1);
+}
+
+// bit i of a 16-bit x to bit 2i
+__device__ __forceinline__ uint32_t spread2(uint32_t x) {
+  x = (x | (x << 8)) & 0x00FF00FFu;
+  x = (x | (x << 4)) & 0x0F0F0F0Fu;
+  x = (x | (x << 2)) & 0x33333333u;
+  return (x | (x << 1)) & 0x55555555u;
+}
+
+// v[k] for a k known only at run time, as a tree of selects on k's bits
+// (indexing the registers would send the array to local memory)
+template <int W>
+__device__ __forceinline__ int pick_level(int (&t)[C], int k) {
+  const bool upper = (k & W) != 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) t[i] = upper ? t[i + W] : t[i];
+  if constexpr (W > 1) {
+    return pick_level<W / 2>(t, k);
+  } else {
+    return t[0];
+  }
+}
+__device__ __forceinline__ int pick(const int (&v)[C], int k) {
+  int t[C];
+#pragma unroll
+  for (int i = 0; i < C; ++i) t[i] = v[i];
+  return pick_level<C / 2>(t, k);
+}
 
 __global__ void __launch_bounds__(32 * kWarps)
 band_forward_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict__ t_lens,
@@ -98,208 +202,369 @@ band_forward_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict__ 
   extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long b = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (b >= B) return;  // the whole warp
+  const int g = lane / kFwdGroup, sub = lane % kFwdGroup;
+  const long long bw0 = (static_cast<long long>(blockIdx.x) * kWarps + warp) * kFwdFrags;
+  if (bw0 >= B) return;  // the whole warp
+  const long long b = bw0 + g;
+  const bool valid = b < B;
   const int SW = T + BW + 1;
-  uint8_t* s_fc = smem + static_cast<size_t>(warp) * forward_bytes(T);
+  uint8_t* s_fc = smem + static_cast<size_t>(warp * kFwdFrags + g) * forward_bytes(T);
   uint8_t* s_tc = s_fc + round16(SW);
-  const uint8_t* f_row = fw_sh + b * SW;
-  for (int i = lane; i < SW; i += 32) s_fc[i] = f_row[i] & 3;
-  const int32_t* c_row = cw + b * T;
-  for (int t = lane; t < T; t += 32) {
-    const int c = c_row[t];
-    // a code outside 0-3 never equals a fragment base
-    s_tc[t] = (c >= 0 && c <= 3) ? static_cast<uint8_t>(c) : 0xFF;
+  if (valid) {
+    const uint8_t* f_row = fw_sh + b * SW;
+    for (int i = sub; i < SW; i += kFwdGroup) s_fc[i] = f_row[i] & 3;
+    const int32_t* c_row = cw + b * T;
+    for (int t = sub; t < T; t += kFwdGroup) {
+      const int c = c_row[t];
+      // a code outside 0-3 never equals a fragment base
+      s_tc[t] = (c >= 0 && c <= 3) ? static_cast<uint8_t>(c) : 0xFF;
+    }
+  } else {
+    for (int i = sub; i < SW; i += kFwdGroup) s_fc[i] = 0;
+    for (int t = sub; t < T; t += kFwdGroup) s_tc[t] = 0xFF;
   }
   __syncwarp();
 
-  const int ql = q_lens[b];
-  const int tl = t_lens[b];
-  const int r0 = r0s[b];
-  const int u0 = lane * C;
+  const int ql = valid ? q_lens[b] : 0;
+  const int tl = valid ? t_lens[b] : 0;
+  const int r0 = valid ? r0s[b] : 0;
+  const int u0 = sub * C;
+  const bool last_sub = sub == kFwdGroup - 1;
   int prev[C];
+  uint32_t fb = 0;  // the bases of my band lanes on the next DP row, 2 bits each
 #pragma unroll
   for (int i = 0; i < C; ++i) {
     const int j = u0 + i - kHalf - r0;
     prev[i] = (j >= 0 && j <= ql) ? j * kGap : kNeg;
+    fb |= static_cast<uint32_t>(s_fc[1 + u0 + i]) << (2 * i);
   }
-  if (lane == 0) row0[b] = ql * kGap;
+  if (valid && sub == 0) row0[b] = ql * kGap;
   const size_t row_words = static_cast<size_t>(B) * kWords;
-  uint32_t* mv_out = moves + b * kWords + lane / 2;
+  uint32_t* mv_out = moves + b * kWords + sub;
   int32_t* end_out = ends + b;
   for (int r = 0; r < T; ++r) {
     const int jb = r + 1 + u0 - kHalf - r0;  // j of my first lane on DP row r + 1
-    const int tch = s_tc[r];
-    const uint8_t* fc = s_fc + r + 1 + u0;
-    const int up_in = __shfl_down_sync(kFull, prev[0], 1);  // the next lane's first
+    const uint32_t tch = s_tc[r];
+    // the next lane's first value, and its first base (my last on the next row)
+    const int up_next = __shfl_down_sync(kFull, prev[0], 1, kFwdGroup);
+    const uint32_t nb_in = __shfl_down_sync(kFull, fb & 3u, 1, kFwdGroup);
+    const int up_in = last_sub ? kNeg : up_next;
+    const uint32_t nb = last_sub ? s_fc[r + 1 + BW] : nb_in;
+    const uint32_t x = fb ^ (tch * 0x55555555u);
+    const uint32_t mb = tch <= 3 ? ~(x | (x >> 1)) & 0x55555555u : 0u;  // 1: a match
     int e[C];
-    uint32_t bits = 0;
+    uint32_t up_bits = 0;  // bit i: cell i's move is up (or it is column 0)
 #pragma unroll
     for (int i = 0; i < C; ++i) {
-      const int dg = prev[i] + (fc[i] == tch ? kMatch : kMismatch);
-      const int up = (i + 1 < C ? prev[i + 1] : (lane == 31 ? kNeg : up_in)) + kGap;
-      int v = dg;
-      uint32_t m = 0;
-      if (dg < up) {
-        v = up;
-        m = 1;
-      }
-      if (jb + i == 0) {  // the free consensus prefix
-        v = 0;
-        m = 1;
-      }
-      e[i] = v;
-      bits |= m << (2 * i);
+      const int dg = prev[i] + (((mb >> (2 * i)) & 1u) ? kMatch : kMismatch);
+      const int up = (i + 1 < C ? prev[i + 1] : up_in) + kGap;
+      bool diag_won;
+      e[i] = __vibmax_s32(dg, up, &diag_won);
+      up_bits |= static_cast<uint32_t>(!diag_won) << i;
     }
-    // the left closure: inclusive prefix max of e + 4u over the band
-    int pm[C];
-    int run = INT_MIN;
+    // the free consensus prefix: column j == 0 restarts at 0 with move up,
+    // before the closure
+    const int uz = kHalf + r0 - (r + 1);
+    if (uz >= 0 && uz < BW && sub == uz / C) {
+      const uint32_t at = 1u << (uz % C);
+#pragma unroll
+      for (int i = 0; i < C; ++i) e[i] = (at >> i) & 1u ? 0 : e[i];
+      up_bits |= at;
+    }
+    // the left closure over my strip from no carry: its last value
+    int run = kNone;
+#pragma unroll
+    for (int i = 0; i < C; ++i) run = __viaddmax_s32(run, kGap, e[i]);
+    // the carries between lanes, to their fixed point
+    const bool past = jb >= ql + 2;                      // all my columns past qlen + 1
+    const bool all_past = r + 1 - kHalf - r0 >= ql + 2;  // the first lane's, so the row's
+    int last = past && !all_past ? kGuess : run;
+    int carry;
+    while (true) {
+      int c = __shfl_up_sync(kFull, last, 1, kFwdGroup);
+      if (sub == 0) c = kNone;
+      int nl = __viaddmax_s32(c, C * kGap, run);
+      if (past && c > kHigh) nl = kGuess;
+      const bool changed = nl != last;
+      carry = c;
+      last = nl;
+      if (!__any_sync(kFull, changed)) break;
+    }
+    // the closure again from the carry; bit i: cell i's move is left
+    int d[C];
+    uint32_t left_bits = 0;
+    run = carry;
 #pragma unroll
     for (int i = 0; i < C; ++i) {
-      run = max(run, e[i] - kGap * (u0 + i));
-      pm[i] = run;
+      run = __viaddmax_s32(run, kGap, e[i]);
+      d[i] = run;
+      left_bits |= static_cast<uint32_t>(run != e[i]) << i;
     }
-    int scan = run;
+    if (valid) {
+      mv_out[static_cast<size_t>(r) * row_words] =
+          spread2(up_bits & ~left_bits) | (spread2(left_bits) << 1);
+    }
+    // lanes outside 0 <= j <= qlen hold NEG: a mask of my cells in the
+    // fragment, from the range's two ends
+    if (jb >= 0 && jb + C - 1 <= ql) {
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(kFull, scan, o);
-      if (lane >= o) scan = max(scan, v);
-    }
-    int carry = __shfl_up_sync(kFull, scan, 1);
-    if (lane == 0) carry = INT_MIN;
-    int endv = kNeg;
-    bool own = false;
+      for (int i = 0; i < C; ++i) prev[i] = d[i];
+    } else {
+      const int lo = max(-jb, 0), hi = min(ql - jb, C - 1);
+      const uint32_t in = lo <= hi ? ((2u << hi) - 1u) & ~((1u << lo) - 1u) : 0u;
 #pragma unroll
-    for (int i = 0; i < C; ++i) {
-      const int closed = max(pm[i], carry) + kGap * (u0 + i);
-      int cur = e[i];
-      if (closed > cur) {
-        cur = closed;
-        bits = (bits & ~(3u << (2 * i))) | (2u << (2 * i));
-      }
-      const int j = jb + i;
-      if (j < 0 || j > ql) cur = kNeg;
-      prev[i] = cur;
-      if (j == ql) {
-        own = true;
-        endv = max(cur, kNeg);
-      }
+      for (int i = 0; i < C; ++i) prev[i] = (in >> i) & 1u ? d[i] : kNeg;
     }
-    // the row's end score: from the lane of column qlen, or NEG from lane 0
-    // when that column is outside the band
+    // the row's end score: from the lane of column qlen, or NEG from the
+    // first lane when that column is outside the band
     const int uq = ql + kHalf + r0 - (r + 1);
-    if (own || (lane == 0 && (uq < 0 || uq >= BW))) {
-      end_out[static_cast<size_t>(r) * B] = own && r < tl ? endv : kNeg;
+    if (uq >= 0 && uq < BW) {
+      if (valid && sub == uq / C) {
+        const int v = pick(prev, uq % C);
+        end_out[static_cast<size_t>(r) * B] = r < tl ? max(v, kNeg) : kNeg;
+      }
+    } else if (valid && sub == 0) {
+      end_out[static_cast<size_t>(r) * B] = kNeg;
     }
-    // a move word holds the 16 band lanes of two neighbouring lanes
-    const uint32_t w = bits | (__shfl_down_sync(kFull, bits, 1) << 16);
-    if ((lane & 1) == 0) mv_out[static_cast<size_t>(r) * row_words] = w;
+    fb = (fb >> 2) | (nb << (2 * (C - 1)));
   }
 }
 
-__global__ void __launch_bounds__(32 * kWarps)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+// x, held in a register from here on: the compiler may not recompute it
+__device__ __forceinline__ unsigned in_register(unsigned x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+__device__ __forceinline__ uint32_t lds_u32(unsigned addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ int lds_u8(unsigned addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u8 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return static_cast<int>(v);
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Stage chunk c of a fragment's moves, rows 32c .. 32c + 31 (those < T),
+// into buffer c & 1 (slot m & 31 holds row m); the group's 8 lanes copy
+// 16 bytes at a time.  Every lane commits, so the warp's groups stay counted
+// alike.
+__device__ __forceinline__ void stage_chunk(uint8_t* s_mv, const uint32_t* mv_frag,
+                                            size_t row_words, int c, int T, bool need,
+                                            int sub) {
+  if (need && c >= 0) {
+    uint8_t* dst = s_mv + (c & 1) * kChunkBytes;
+#pragma unroll 4
+    for (int k = sub; k < kChunk * 4; k += kGroup) {
+      const int slot = k >> 2, part = k & 3;
+      const int m = kChunk * c + slot;
+      if (m < T) cp_async16(dst + slot * 64 + part * 16, mv_frag + m * row_words + part * 4);
+    }
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(32 * kWalkWarps)
 band_walk_kernel(const uint32_t* __restrict__ moves, const int32_t* __restrict__ ends,
                  const int32_t* __restrict__ row0, const uint8_t* __restrict__ fw_sh,
                  const int32_t* __restrict__ q_lens, const int32_t* __restrict__ r0s,
                  int32_t* __restrict__ votes, int32_t* __restrict__ ins, long long B, int T) {
   extern __shared__ __align__(16) uint8_t smem[];
+  // [warp][fragment of the block]
+  __shared__ int s_best[kWalkWarps][kWalkFrags], s_best_r[kWalkWarps][kWalkFrags];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long b = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (b >= B) return;  // the whole warp
-  const int SW = T + BW + 1;
-  uint8_t* s_fw = smem + static_cast<size_t>(warp) * walk_bytes(T);
-  const uint8_t* f_row = fw_sh + b * SW;
-  for (int i = lane; i < SW; i += 32) s_fw[i] = f_row[i];
-  __syncwarp();
-  const int ql = q_lens[b];
-  const int r0 = r0s[b];
+  const int g = lane / kGroup, sub = lane % kGroup;
+  const long long b0 = static_cast<long long>(blockIdx.x) * kWalkFrags;
+  const int fl = warp * kFragsPerWarp + g;  // my fragment in the block
+  const long long b = b0 + fl;
+  const bool valid = b < B;
 
-  // the best end score and the first row holding it
-  int best = INT_MIN, best_r = 0;
-  for (int t = lane; t < T; t += 32) {
-    const int x = ends[static_cast<size_t>(t) * B + b];
-    if (x > best) {
-      best = x;
-      best_r = t;
+  // the best end score and the first row holding it, for the block's 16
+  // fragments at once: thread t reads fragment t % 16 of rows t / 16, +8, ..
+  {
+    const int f = threadIdx.x % kWalkFrags;
+    int best = INT_MIN, best_r = 0;
+    if (b0 + f < B) {
+      for (int t = threadIdx.x / kWalkFrags; t < T; t += 32 * kWalkWarps / kWalkFrags) {
+        const int x = ends[static_cast<size_t>(t) * B + b0 + f];
+        if (x > best) {
+          best = x;
+          best_r = t;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = kWalkFrags; o < 32; o <<= 1) {
+      const int ov = __shfl_xor_sync(kFull, best, o);
+      const int orr = __shfl_xor_sync(kFull, best_r, o);
+      if (ov > best || (ov == best && orr < best_r)) {
+        best = ov;
+        best_r = orr;
+      }
+    }
+    if (lane < kWalkFrags) {
+      s_best[warp][lane] = best;
+      s_best_r[warp][lane] = best_r;
     }
   }
+  __syncthreads();
+  if (b0 + warp * kFragsPerWarp >= B) return;  // the whole warp
+  int best = s_best[0][fl], best_r = s_best_r[0][fl];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const int ov = __shfl_xor_sync(kFull, best, o);
-    const int orr = __shfl_xor_sync(kFull, best_r, o);
+  for (int w = 1; w < kWalkWarps; ++w) {
+    const int ov = s_best[w][fl], orr = s_best_r[w][fl];
     if (ov > best || (ov == best && orr < best_r)) {
       best = ov;
       best_r = orr;
     }
   }
-  const int t0 = row0[b] >= best ? 0 : best_r + 1;
+  const int t0 = valid ? (row0[b] >= best ? 0 : best_r + 1) : 0;
+  const int ql = valid ? q_lens[b] : 0;
+  const int r0 = valid ? r0s[b] : 0;
 
-  const int u0 = lane * C;
-  const uint32_t* mv_in = moves + b * kWords + lane / 2;
-  const int sh = 16 * (lane & 1);
+  const int SW = T + BW + 1;
+  uint8_t* s_warp = smem + static_cast<size_t>(warp) * kFragsPerWarp * walk_bytes(T);
+  uint8_t* s_mv = s_warp + g * walk_bytes(T);
+  uint8_t* s_fw = s_mv + 2 * kChunkBytes;
   const size_t row_words = static_cast<size_t>(B) * kWords;
-  int32_t* v_out = votes + b * T;
-  int32_t* i_out = ins + b * (T + 1);
-  int p = -1;  // the walker's lane (warp-uniform), -1: no walk
-  int vreg = 0, ireg = 0;  // this lane's row of the 32-row chunk in flight
-  for (int r = T; r >= 1; --r) {
-    if (r == t0) {
-      const int ui = ql + kHalf + r0 - r;
-      if (ui >= 0 && ui < BW) p = ui;
-    }
-    int vote = 0, insv = 0;
-    if (p >= 0) {
-      const uint32_t bits = (mv_in[static_cast<size_t>(r - 1) * row_words] >> sh) & 0xFFFFu;
-      const int ulo = 1 + kHalf + r0 - r;  // the lowest lane with j >= 1
-      const uint32_t bp = __shfl_sync(kFull, bits, p / C);
-      if (((bp >> (2 * (p % C))) & 3u) == 2u && p >= ulo) insv = 1 | (s_fw[r + p] << 1);
-      // my lanes in [ulo, p] whose move is not left: the low bit of each
-      // 2-bit field
-      const int lo = max(ulo - u0, 0);
-      const int hi = min(p - u0, C - 1);
-      uint32_t cand = 0;
-      if (lo <= hi) {
-        const uint32_t span = ((1u << (2 * hi + 2)) - 1u) & ~((1u << (2 * lo)) - 1u);
-        cand = ~((bits >> 1) & ~bits) & span & 0x55555555u;
+  const uint32_t* mv_frag = moves + (valid ? b : 0) * kWords;
+  // the top two chunks that hold a row the walk can reach (< t0), under the
+  // fragment rows' copy
+  const int ctop = (T - 1) / kChunk;
+  stage_chunk(s_mv, mv_frag, row_words, ctop, T, valid && kChunk * ctop <= t0 - 1, sub);
+  stage_chunk(s_mv, mv_frag, row_words, ctop - 1, T, valid && kChunk * (ctop - 1) <= t0 - 1,
+              sub);
+  // the warp's fragment rows, one after another: [4, SW] bytes from row b
+  for (int gg = 0; gg < kFragsPerWarp; ++gg) {
+    const long long bg = b0 + warp * kFragsPerWarp + gg;
+    if (bg >= B) break;
+    const uint8_t* f_row = fw_sh + bg * SW;
+    uint8_t* dst = s_warp + gg * walk_bytes(T) + 2 * kChunkBytes;
+    for (int i = lane; i < SW; i += 32) dst[i] = f_row[i];
+  }
+  __syncwarp();
+
+  // shared-space addresses, so the walk's loads need no generic conversion
+  const unsigned mv_sh = in_register(static_cast<unsigned>(__cvta_generic_to_shared(s_mv)));
+  const unsigned fw_sh_base = in_register(static_cast<unsigned>(__cvta_generic_to_shared(s_fw)));
+  int p = -1;           // the walker's lane (uniform over the group), -1: none
+  bool walked = false;  // the walk has started and ended
+  // blocks of 8 rows, m = 8k + 7 down to 8k (DP rows m + 1), 4 blocks a chunk
+  constexpr int kBlocks = kChunk / kGroup;
+  const int ktop = (T - 1) / kGroup;
+  // lane sub writes votes[b, 8k + sub] and ins[b, 8k + sub + 1]
+  int32_t* v_at = votes + b * T + kGroup * ktop + sub;
+  int32_t* i_at = ins + b * (T + 1) + kGroup * ktop + sub + 1;
+  for (int k = ktop; k >= 0; --k, v_at -= kGroup, i_at -= kGroup) {
+    const int c = k / kBlocks;
+    if (k == ktop || k % kBlocks == kBlocks - 1) {  // entering chunk c (the warp together)
+      if (k != ktop) {
+        __syncwarp();  // every lane is done with the buffer chunk c - 1 takes
+        stage_chunk(s_mv, mv_frag, row_words, c - 1, T,
+                    valid && !walked && kChunk * (c - 1) <= t0 - 1, sub);
       }
-      const unsigned who = __ballot_sync(kFull, cand != 0);
-      if (who == 0) {
+      cp_async_wait_one();  // chunk c has landed (c - 1 may be in flight)
+      __syncwarp();
+    }
+    int vreg = 0, ireg = 0;  // lane sub: row 8k + sub's vote and insertion, packed
+    // the block's first move row in shared memory, and row 8k's lowest lane
+    // with j >= 1 (row 8k + i's is i lower)
+    const unsigned blk = in_register(mv_sh + (c & 1) * kChunkBytes +
+                                     (k % kBlocks) * (kGroup * kWords * 4));
+    const int ulo0 = kHalf + r0 - kGroup * k;
+#pragma unroll
+    for (int i = kGroup - 1; i >= 0; --i) {
+      const int m = kGroup * k + i, r = m + 1;
+      if (m >= T) continue;  // the top block only
+      if (r == t0) {
+        const int ui = ql + kHalf + r0 - r;
+        if (ui >= 0 && ui < BW) p = ui;
+      }
+      if (p < 0) continue;
+      const unsigned row = blk + i * (kWords * 4);
+      const int ulo = ulo0 - i;  // the lowest lane with j >= 1
+      const uint32_t wp = lds_u32(row + 4 * (p >> 4));
+      int mvq = static_cast<int>((wp >> (2 * (p & 15))) & 3u);
+      int q = p;
+      if (mvq == 2 || p < ulo) {
+        // an insertion at the walker (its byte read at the flush)
+        if (mvq == 2 && p >= ulo && sub == i) ireg = 1 | (p << 1);
+        // slide: the highest lane in [ulo, p] whose move is not left (the
+        // low bit of its 2-bit field), a move word at a time
+        q = -1;
+        const int first = max(ulo, 0);
+        for (int w = p >> 4; w >= first >> 4; --w) {
+          const uint32_t word = w == p >> 4 ? wp : lds_u32(row + 4 * w);
+          const int hi = w == p >> 4 ? p & 15 : 15;
+          const int lo = max(first - 16 * w, 0);
+          if (lo > hi) break;
+          const uint32_t top = hi == 15 ? ~0u : (1u << (2 * hi + 2)) - 1u;
+          const uint32_t cand = ~((word >> 1) & ~word) & top & ~((1u << (2 * lo)) - 1u) &
+                                0x55555555u;
+          if (cand != 0) {
+            const int bit = (31 - __clz(cand)) >> 1;
+            q = 16 * w + bit;
+            mvq = static_cast<int>((word >> (2 * bit)) & 3u);
+            break;
+          }
+        }
+      }
+      if (q < 0) {
         p = -1;
       } else {
-        const int src = 31 - __clz(who);
-        const int q = __shfl_sync(kFull, u0 + (31 - __clz(cand)) / 2, src);
-        const uint32_t bq = __shfl_sync(kFull, bits, src);
-        const int mvq = static_cast<int>((bq >> (2 * (q - src * C))) & 3u);
-        const int fq = s_fw[r + q];
-        vote = 1 | ((mvq == 0 ? (fq & 3) : 4) << 1) | ((fq >> 2) << 4);
-        const int nxt = mvq == 0 ? q : q + 1;
-        p = nxt < BW && nxt + r - kHalf - r0 > 1 ? nxt : -1;
+        if (sub == i) vreg = 1 | (mvq << 1) | (q << 3);  // its byte read at the flush
+        const int nxt = q + (mvq != 0);  // diag: the same lane, up: the next
+        p = nxt < BW && nxt > ulo ? nxt : -1;  // j of nxt on row r - 1 above 1
       }
+      walked = p < 0;
     }
-    if (lane == ((r - 1) & 31)) vreg = vote;
-    if (lane == (r & 31)) ireg = insv;
-    if (((r - 1) & 31) == 0 && r - 1 + lane < T) v_out[r - 1 + lane] = vreg;
-    if ((r & 31) == 0 && r + lane <= T) i_out[r + lane] = ireg;
+    // the block's votes: the fragment's bytes read and the rows written by
+    // the 8 lanes side by side, off the walk's chain
+    const int m = kGroup * k + sub;
+    if (valid && m < T) {
+      int v = 0;
+      if (vreg != 0) {
+        const int fq = lds_u8(fw_sh_base + m + 1 + (vreg >> 3));
+        v = 1 | ((((vreg >> 1) & 3) == 0 ? (fq & 3) : 4) << 1) | ((fq >> 2) << 4);
+      }
+      *v_at = v;
+      *i_at = ireg != 0 ? 1 | (lds_u8(fw_sh_base + m + 1 + (ireg >> 1)) << 1) : 0;
+    }
   }
+  cp_async_wait_all();  // chunks staged for a walk that ended early
   if (t0 == 0) {
     const int ui = ql + kHalf + r0;
     if (ui >= 0 && ui < BW) p = ui;
   }
-  const int i0 = p >= 0 && p - kHalf - r0 >= 1 ? 1 | (s_fw[p] << 1) : 0;
-  if (lane == 0) ireg = i0;
-  if (lane <= T) i_out[lane] = ireg;
+  if (valid && sub == 0) {
+    ins[b * (T + 1)] = p >= 0 && p - kHalf - r0 >= 1 ? 1 | (lds_u8(fw_sh_base + p) << 1) : 0;
+  }
 }
 
 template <typename Kernel>
-int launch_setup(Kernel kernel, long long B, long long smem, unsigned* blocks) {
+int launch_setup(Kernel kernel, long long B, int per_block, long long smem, unsigned* blocks) {
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const long long n = (B + kWarps - 1) / kWarps;
+  const long long n = (B + per_block - 1) / per_block;
   if (n > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   *blocks = static_cast<unsigned>(n);
   return 0;
@@ -308,9 +573,9 @@ int launch_setup(Kernel kernel, long long B, long long smem, unsigned* blocks) {
 int launch_forward(const void* cw, const void* t_lens, const void* fw_sh, const void* q_lens,
                    const void* r0, void* moves, void* ends, void* row0, long long B, int T,
                    cudaStream_t stream) {
-  const long long smem = static_cast<long long>(kWarps) * forward_bytes(T);
+  const long long smem = static_cast<long long>(kWarps) * kFwdFrags * forward_bytes(T);
   unsigned blocks = 0;
-  const int err = launch_setup(band_forward_kernel, B, smem, &blocks);
+  const int err = launch_setup(band_forward_kernel, B, kWarps * kFwdFrags, smem, &blocks);
   if (err != 0) return err;
   band_forward_kernel<<<blocks, 32 * kWarps, static_cast<size_t>(smem), stream>>>(
       static_cast<const int32_t*>(cw), static_cast<const int32_t*>(t_lens),
@@ -323,11 +588,11 @@ int launch_forward(const void* cw, const void* t_lens, const void* fw_sh, const 
 int launch_walk(const void* moves, const void* ends, const void* row0, const void* fw_sh,
                 const void* q_lens, const void* r0, void* votes, void* ins, long long B, int T,
                 cudaStream_t stream) {
-  const long long smem = static_cast<long long>(kWarps) * walk_bytes(T);
+  const long long smem = static_cast<long long>(kWalkFrags) * walk_bytes(T);
   unsigned blocks = 0;
-  const int err = launch_setup(band_walk_kernel, B, smem, &blocks);
+  const int err = launch_setup(band_walk_kernel, B, kWalkFrags, smem, &blocks);
   if (err != 0) return err;
-  band_walk_kernel<<<blocks, 32 * kWarps, static_cast<size_t>(smem), stream>>>(
+  band_walk_kernel<<<blocks, 32 * kWalkWarps, static_cast<size_t>(smem), stream>>>(
       static_cast<const uint32_t*>(moves), static_cast<const int32_t*>(ends),
       static_cast<const int32_t*>(row0), static_cast<const uint8_t*>(fw_sh),
       static_cast<const int32_t*>(q_lens), static_cast<const int32_t*>(r0),

@@ -66,6 +66,13 @@ def _case(name):
                     s = int(rng.integers(0, L // 2))
                     e = int(rng.integers(s + 40, L + 1))
                 f = mutate(rng, truth[s:e], 0.06, 0.05, 0.05)
+                if name == "insertion-runs":
+                    # runs of 20-60 bases the consensus lacks: their left
+                    # moves cross the band kernel's 16-lane strips
+                    for _ in range(int(rng.integers(1, 3))):
+                        at = int(rng.integers(1, f.size))
+                        run = rng.integers(0, 4, int(rng.integers(20, 61))).astype(np.uint8)
+                        f = np.concatenate([f[:at], run, f[at:]])
                 if name == "long-fragments" and rng.random() < 0.5:
                     # past what the band reaches: q_len > T + BW/2 - r0
                     f = np.concatenate([f, f, mutate(rng, truth, 0.1, 0.05, 0.05)])
@@ -84,7 +91,8 @@ def _case(name):
     return T, BW, NWIN, cons_arr, cons_lens, frags, weights, np.asarray(win_of, np.int32), r0
 
 
-CASES = ["full-rect", "spans", "weights-over-cap", "long-fragments", "end-ties"]
+CASES = ["full-rect", "spans", "weights-over-cap", "long-fragments", "end-ties",
+         "insertion-runs"]
 
 
 def _packed(name, pad_rows=8):
@@ -124,6 +132,15 @@ def test_band_forward_matches_jax(name):
         assert np.array_equal(g.numpy(), np.asarray(w))
     if name == "long-fragments":
         assert (q_lens > T + BW // 2 - r0).any()
+    if name == "insertion-runs":
+        # in-fragment runs of 17 left moves: each crosses a strip boundary
+        mv = np.asarray(want[0]).astype(np.int64) & 0xFFFFFFFF
+        codes = ((mv[..., None] >> (2 * np.arange(16))) & 3).reshape(T, -1, BW)
+        j = (np.arange(1, T + 1)[:, None, None] + np.arange(BW)[None, None, :]
+             - BW // 2 - r0[None, :, None])
+        left = (codes == 2) & (j >= 1) & (j <= q_lens[None, :, None])
+        runs = np.lib.stride_tricks.sliding_window_view(left, 17, axis=2).all(axis=3)
+        assert runs.sum() > 100
     if name == "end-ties":
         ends = np.asarray(want[1])
         best = ends.max(axis=0)
