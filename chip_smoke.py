@@ -8,8 +8,8 @@ of the repository) and the CUDA toolkit's nvcc.  Phases, each fatal on
 failure:
 
   1. the card, the versions, the builds (the host C++ library, then K1,
-     K2, K3 and K4 with nvcc for sm_90a, one nvcc per source, started
-     together);
+     K2, K3, K4, K9 and K10 with nvcc for sm_90a, one nvcc per source,
+     started together);
   2. kernel K1 (segment sketch, csrc/sketch.cu) against its plain torch
      version on the card, bit for bit, at (k, w) = (15, 5) and (11, 3), on
      a chunk of real segment rows [8192, 2048] and a ragged row count, and
@@ -50,18 +50,35 @@ failure:
      runs of 20-60 bases whose left moves cross K3's 16-lane strips, and
      walks from row 0; median times over CUDA events beside the bound, K3's
      and K4's SASS loop sizes and K4's serial floor;
-  8. the main path with polish: `raven_tpu_torch.cli.main([reads, "-p",
+  8. kernels K9 (anchored banded forward) and K10 (banded walk),
+     csrc/banded.cu, against their plain torch versions on the card, bit
+     for bit on every output (move words, band starts, end scores, row-0
+     scores, the four vote primitives): the bank's first chunk as the
+     anchored banded consensus lays it out, [B, T, Q, BW] = [2048, 640,
+     768, 256] with full spans, a ragged B = 1237, partial spans at r0 > 0,
+     spans of one row (band starts that leap by BW or more), fragments twice
+     their consensus's length at Q = 1024, qlen 0 rows, all-mismatch rows,
+     walks from row 0 (some of which must stall on the top row), and K10 on
+     band starts raised under the moves (some walks must stop at the band's
+     edge); how the walks ended, median times over CUDA events beside the
+     bound and K2's time at the same chunk, and K10's serial floor;
+  9. the main path with polish: `raven_tpu_torch.cli.main([reads, "-p",
      "2", "--device-poa-batches", "8", "-t", <cores>, ...])` on phase 4's
      1 Mb x 30x reads, which must give one contig of at least 0.97 of the
      genome at an edit-distance rate of 0.05% or less against the true
      genome (the synthetic golden gate), with K2 and the crossing DP run
      on the card;
-  9. the default polish: the same reads through `-p 2 -t <cores>` (host
+ 10. the default polish: the same reads through `-p 2 -t <cores>` (host
      POA in round 0, the shift-banded consensus on the card in round 1),
      with the same gate, K3 and K4 launched 64 times each, the crossing DP
      run on the card, and the consensus call split into host prep, K3, K4,
      the epilogue and the K5 torch ops;
- 10. a `kernels` JSON line, the card's name and power limit, and the last
+ 11. the banded polish: the same reads through `-p 2 --device-poa-batches 8
+     --device-banded-alignment -t <cores>` (the anchored banded consensus
+     on the card in both rounds), with the same gate, K9 and K10 launched
+     equally often, the crossing DP run on the card, and the consensus
+     calls split into K9, K10 and the epilogue;
+ 12. a `kernels` JSON line, the card's name and power limit, and the last
      line {"ok": true, "device": {...}}.
 """
 
@@ -115,6 +132,25 @@ K4_INSTR_PER_ROW = 6
 # walks run side by side, so a launch takes at least its longest walk.
 K4_CHAIN_CYCLES = 9 * 4 + 30
 SM_CLOCK_HZ = 1.98e9
+# K9's recurrence is K2's (scores 3/-5/-4, diag and up, the left closure,
+# move bits), so it needs at least K2's 4 integer instructions per band cell
+# on the 16-bit pair instructions; the two previous-row values it regathers
+# come from shared memory, not the integer pipes.  (With scalar int32
+# instructions, as the kernel runs today, K3's count of 10 a cell; printed
+# beside the bound as information.)
+K9_INSTR_PER_CELL = 4
+K9_INT32_INSTR_PER_CELL = K3_INSTR_PER_CELL
+# K10 needs at least 6 integer instructions per move of its walk: the move's
+# shift and mask (2), the band test (1), the next row and column (2), the
+# vote's select (1).
+K10_INSTR_PER_STEP = 6
+# K10's walk is one chain per fragment: a step's band start from shared
+# memory (~30 cycles on Hopper), the lane's offset and band test (2), the
+# move word's address and shared-memory load (1 and ~30), the move's
+# extraction and test (3) and the next row and column (2): 8 dependent
+# integer instructions of at least 4 cycles and two loads, at 1.98 GHz.
+K10_CHAIN_CYCLES = 8 * 4 + 2 * 30
+BANDED_T, BANDED_Q, BANDED_BW = 640, 768, 256  # device_window_consensus's shapes
 BAND_DEFAULT_LAUNCHES = 64  # 16 groups of up to 128 windows x 4 iterations
 BAND_T, BAND_BW = 640, 256  # the shift-banded consensus's t_pad and band
 ED_RATE_CEILING = 0.0005  # tests/test_synthetic_golden.py
@@ -264,6 +300,47 @@ def band_walk_bound(votes, B: int, T: int, BW: int) -> tuple[float, str, dict]:
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, {"bytes": nbytes, "int_ops": ops, "voted_rows": voted,
                                      "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
+def banded_forward_bound(tlens, B: int, T: int, Q: int, BW: int) -> tuple[float, str, dict]:
+    """Least time for K9's work on these inputs: the larger of the bytes
+    each read or written once (cw int32 [B, T], frags int32 [B, Q], t_lens,
+    q_lens, r0, r1 int32 [B] in; moves int32 [T, B, BW/16], offs and end
+    scores int32 [T, B], row-0 scores int32 [B] out) over HBM bandwidth, and
+    K9_INSTR_PER_CELL integer instructions for each band cell of a row
+    within the fragment's consensus (every such cell's move is an output;
+    the rows past it are constants) over the card's instruction issue
+    rate."""
+    import torch
+
+    cells = int(tlens.to(torch.int64).clamp(0, T).sum()) * BW
+    nbytes = 4 * B * T + 4 * B * Q + 16 * B + 4 * T * B * (BW // 16) + 8 * T * B + 4 * B
+    ops = cells * K9_INSTR_PER_CELL
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_INSTR_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, {"bytes": nbytes, "int_ops": ops, "cells": cells,
+                                     "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
+def banded_walk_bound(steps, col_sym, ins_b, B: int, T: int) -> tuple[float, str, dict]:
+    """Least time for K10's work on these inputs: the larger of the bytes it
+    must move (the end scores int32 [T, B], which the best row needs whole;
+    row-0 scores and q_lens int32 [B]; a 4-byte move word and a 4-byte band
+    start for each move the walks take; a fragment base and weight, 8
+    bytes, for each vote they cast; col_sym, col_w int32 [B, T] and ins_b,
+    ins_w int32 [B, T + 1] out) over HBM bandwidth, and K10_INSTR_PER_STEP
+    integer instructions per move over the card's instruction issue
+    rate."""
+    moves = int(steps.sum())
+    votes = int((col_sym < 5).sum()) + int((ins_b >= 0).sum())
+    nbytes = 4 * T * B + 8 * B + 8 * moves + 8 * votes + 4 * B * (2 * T + 2 * (T + 1))
+    ops = moves * K10_INSTR_PER_STEP
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_INSTR_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, {"bytes": nbytes, "int_ops": ops, "moves": moves,
+                                     "votes": votes, "bytes_ms": t_bytes, "ops_ms": t_ops}
 
 
 def sass_loops(so_path: str, kernel: str) -> tuple[int, list]:
@@ -548,7 +625,7 @@ def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> di
     from raven_tpu_torch import cli
     from raven_tpu_torch.graph import layout
     from raven_tpu_torch.io.readset import encode
-    from raven_tpu_torch.ops import band_cuda, consensus_cuda, dp_device
+    from raven_tpu_torch.ops import band_cuda, banded_cuda, consensus_cuda, dp_device
     from raven_tpu_torch.ops import sketch_cuda
     from raven_tpu_torch.overlap.engine import MinimizerIndex
     from raven_tpu_torch.utils.synth import simulate_reads
@@ -567,6 +644,7 @@ def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> di
     sketch_cuda.LAUNCHES = 0
     consensus_cuda.LAUNCHES = 0
     band_cuda.LAUNCHES.update(dict.fromkeys(band_cuda.LAUNCHES, 0))
+    banded_cuda.LAUNCHES.update(dict.fromkeys(banded_cuda.LAUNCHES, 0))
     dp_device.DEVICE_RUNS = 0
     layout.DEVICE_RUNS = 0
     MinimizerIndex.host_declines = 0
@@ -578,6 +656,8 @@ def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> di
            "k2_launches": consensus_cuda.LAUNCHES,
            "k3_launches": band_cuda.LAUNCHES["band_forward"],
            "k4_launches": band_cuda.LAUNCHES["mask_walk_votes"],
+           "k9_launches": banded_cuda.LAUNCHES["nw_moves_banded"],
+           "k10_launches": banded_cuda.LAUNCHES["traceback_banded"],
            "dp_runs": dp_device.DEVICE_RUNS,
            "declines": MinimizerIndex.host_declines, "wall_s": wall, **timings}
     require(rc == 0, f"cli exited {rc}")
@@ -913,7 +993,7 @@ def phase_band(device):
             torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays
         )
         B = cw.shape[0]
-        got = bc._forward_kernel(cw, tl, fw, ql, r0, T, BW)
+        got = bc.band_forward(cw, tl, fw, ql, r0, T, BW)
         want = bc.band_forward_plain(cw, tl, fw, ql, r0, T, BW)
         torch.cuda.synchronize()
         err3 = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
@@ -921,7 +1001,7 @@ def phase_band(device):
         require(all(torch.equal(a, b) for a, b in zip(got, want)),
                 f"K3 differs from band_forward_plain at {name} [{B}, {T}, {BW}] "
                 f"(max abs err {err3})")
-        gv = bc._walk_kernel(*want, fw, ql, r0, T, BW)
+        gv = bc.mask_walk_votes(*want, fw, ql, r0, T, BW)
         wv = bc.mask_walk_votes_plain(*want, fw, ql, r0, T, BW)
         torch.cuda.synchronize()
         err4 = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
@@ -934,8 +1014,8 @@ def phase_band(device):
         t0_zero = int(((want[2] >= want[1].max(dim=0).values) & (ql > 0)
                        & (ql + BW // 2 + r0 < BW)).sum())
         reach = int((ql > T + BW // 2 - r0).sum())
-        ms3 = cuda_ms(lambda: bc._forward_kernel(cw, tl, fw, ql, r0, T, BW))
-        ms4 = cuda_ms(lambda: bc._walk_kernel(*want, fw, ql, r0, T, BW))
+        ms3 = cuda_ms(lambda: bc.band_forward(cw, tl, fw, ql, r0, T, BW))
+        ms4 = cuda_ms(lambda: bc.mask_walk_votes(*want, fw, ql, r0, T, BW))
         b3, by3, p3 = band_forward_bound(B, T, BW)
         b4, by4, p4 = band_walk_bound(wv[0], B, T, BW)
         log(
@@ -983,26 +1063,205 @@ def phase_band(device):
     return k3, k4
 
 
-@contextlib.contextmanager
-def band_consensus_split(split: dict):
-    """Split the shift-banded consensus calls into `split` (seconds summed
-    over the calls): the host prep of each group on the host clock, and the
-    device time between CUDA events recorded around each call of K3, K4,
-    the vote epilogue and the K5 torch ops (run map, canonicalisation,
-    rebuild), read once the calls are done."""
+def banded_layout(windows, n_rows: int, t_pad: int = BANDED_T, q_pad: int = BANDED_Q):
+    """The first `n_rows` fragment rows of `windows` ((backbone, fragments,
+    weights[, spans]) each) as device_window_consensus(banded=True) lays out
+    its first iteration, through its own helpers: the window backbone (the
+    working consensus) padded to t_pad, the fragment and its weights to
+    q_pad, its anchors rescaled to the consensus length.  Returns numpy (cw,
+    tlens, frags, qlens, r0, r1, wts)."""
+    from raven_tpu_torch.ops import consensus_device as cd
+
+    fr, wt, ql, win, s0, s1, n = cd.flatten_fragments(windows, q_pad, n_rows)
+    cons_arr, cons_lens = cd.pad_consensus(
+        [np.asarray(w[0], np.uint8) for w in windows], t_pad, len(windows)
+    )
+    r0, r1 = cd.rescale_anchors(s0, s1, win, n, cons_lens, [len(w[0]) for w in windows])
+    rows = slice(0, min(n, n_rows))
+    return (cons_arr[win[rows]], cons_lens[win[rows]], fr[rows], ql[rows], r0[rows],
+            r1[rows], wt[rows])
+
+
+def banded_cases():
+    """[name, (cw, tlens, frags, qlens, r0, r1, wts)] numpy cases for K9
+    and K10 at T = 640, BW = 256: the window bank's first chunk as the
+    anchored banded consensus lays it out ([B, T, Q] = [2048, 640, 768],
+    full spans), and the cases the kernels could break on."""
+    from raven_tpu_torch.utils.synth import make_windows
+
+    T, Q = BANDED_T, BANDED_Q
+    windows, _ = make_windows(512, 500, 30, np.random.default_rng(21))
+    chunk = banded_layout(windows, 2048)
+    cases = [("bank chunk", chunk), ("ragged B", tuple(a[:1237] for a in chunk))]
+    # partial fragments (read ends) placed at r0 > 0, weights up to 255
+    rng = np.random.default_rng(5)
+    spanned = []
+    for _ in range(70):
+        truth = rng.integers(0, 4, 500).astype(np.uint8)
+        frags, spans = [], []
+        for _ in range(30):
+            s0, s1 = 0, 500
+            if rng.random() < 0.4:
+                s0 = int(rng.integers(0, 300))
+                s1 = int(rng.integers(s0 + 150, 501))
+            frags.append(band_mutate(rng, truth[s0:s1], 0.04, 0.05, 0.05))
+            spans.append((s0, s1))
+        wts = [rng.integers(1, 256, f.size).astype(np.uint8) for f in frags]
+        spanned.append((band_mutate(rng, truth, 0.04, 0.05, 0.05), frags, wts, spans))
+    cases.append(("partial spans", banded_layout(spanned, 2048)))
+    # each fragment anchored on one row: its band start leaps by BW or more
+    cw, tl, fr, ql, r0, r1, wt = (a.copy() for a in chunk)
+    r0 = (rng.random(r0.size) * tl).astype(np.int32)
+    cases.append(("one-row spans", (cw, tl, fr, ql, r0, r0 + 1, wt)))
+    # each fragment twice over: slope 2, at Q = 1024
+    Q2 = 1024
+    fr2 = np.full((fr.shape[0], Q2), -1, np.int32)
+    wt2 = np.zeros((fr.shape[0], Q2), np.int32)
+    for b in range(fr.shape[0]):
+        f = np.concatenate([fr[b, : ql[b]], fr[b, : ql[b]]])[:Q2]
+        fr2[b, : f.size] = f
+        wt2[b, : f.size] = np.concatenate([wt[b, : ql[b]], wt[b, : ql[b]]])[:Q2]
+    cases.append(("slope 2, Q = 1024", (cw, tl, fr2, np.minimum(2 * ql, Q2).astype(np.int32),
+                                         chunk[4], chunk[5], wt2)))
+    # qlen 0 rows, at an odd B
+    q0 = chunk[3][:1237].copy()
+    q0[::7] = 0
+    f0 = chunk[2][:1237].copy()
+    f0[::7] = -1
+    cases.append(("qlen 0 rows", (chunk[0][:1237], chunk[1][:1237], f0, q0, chunk[4][:1237],
+                                  chunk[5][:1237], chunk[6][:1237])))
+    # all-A consensus against all-C fragments: every cell a mismatch, the DP
+    # on NEG-derived values past the fragment
+    n = 256
+    cwm = np.where(np.arange(T)[None, :] < tl[:n, None], 0, -1).astype(np.int32)
+    cases.append(("all mismatches", (cwm, tl[:n], np.ones((n, Q), np.int32),
+                                     np.full(n, Q, np.int32), np.zeros(n, np.int32),
+                                     np.maximum(tl[:n], 1), np.full((n, Q), 7, np.int32))))
+    # consensus of 0 or 1 bases against 50 or 300 mismatching ones: each
+    # walk starts at row 0; the 300-base ones start past row 1's band's
+    # left end at column 0 and stall on the top row
+    t0 = (np.arange(n) % 2).astype(np.int32)
+    q_r0 = np.where(np.arange(n) % 4 < 2, 50, 300).astype(np.int32)
+    f_r0 = np.where(np.arange(Q)[None, :] < q_r0[:, None], 1, -1).astype(np.int32)
+    cases.append(("walks from row 0", (cwm * 0, t0, f_r0, q_r0, np.zeros(n, np.int32),
+                                       np.maximum(t0, 1),
+                                       np.where(f_r0 >= 0, 9, 0).astype(np.int32))))
+    return cases
+
+
+def phase_banded(device, k2_ms):
+    """K9 and K10 vs their plain versions on the banded cases, bit for bit on
+    every output, with how the walks ended; K10 also on the partial-span
+    case's forward with band starts raised at random under the moves, which
+    sends walks out of the band.  Returns the kernels entry fields for the
+    main-path shape [2048, 640, 256] (Q = 768)."""
     import torch
 
-    from raven_tpu_torch.ops import band_cuda, consensus_band
+    from raven_tpu_torch.ops import banded_cuda as bc
 
-    parts = {
-        (consensus_band, "_prepare_group"): "host prep",
-        (band_cuda, "band_forward"): "K3",
-        (band_cuda, "mask_walk_votes"): "K4",
-        (band_cuda, "vote_tables"): "epilogue",
-        (consensus_band, "_run_map_device"): "K5 torch ops",
-        (consensus_band, "canonicalize_ins"): "K5 torch ops",
-        (consensus_band, "_rebuild_device"): "K5 torch ops",
-    }
+    T, BW = BANDED_T, BANDED_BW
+    k9 = k10 = None
+    rng = np.random.default_rng(13)
+    cases = banded_cases()
+    # the partial-span case again, its band starts raised under K9's moves
+    cases.append(("off the band", dict(cases)["partial spans"]))
+    for name, arrays in cases:
+        cw, tl, fr, ql, r0, r1, wt = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays
+        )
+        B, Q = fr.shape
+        got = bc.nw_moves_banded(cw, tl, fr, ql, r0, r1, T, Q, BW)
+        want = bc.nw_moves_banded_plain(cw, tl, fr, ql, r0, r1, T, Q, BW)
+        torch.cuda.synchronize()
+        err9 = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                   for a, b in zip(got, want))
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"K9 differs from nw_moves_banded_plain at {name} [{B}, {T}, {Q}] "
+                f"(max abs err {err9})")
+        fwd = list(want)
+        if name == "off the band":
+            raise_by = rng.integers(0, 40, fwd[1].shape) * (rng.random(fwd[1].shape) < 0.2)
+            fwd[1] = (fwd[1] + torch.from_numpy(raise_by).to(device)).to(torch.int32)
+        gw = bc.traceback_banded(*fwd, ql, fr, wt, T, Q, BW)
+        ww, kinds, steps = bc.traceback_banded_plain(*fwd, ql, fr, wt, T, Q, BW,
+                                                     return_walks=True)
+        torch.cuda.synchronize()
+        err10 = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                    for a, b in zip(gw, ww))
+        require(all(torch.equal(a, b) for a, b in zip(gw, ww)),
+                f"K10 differs from traceback_banded_plain at {name} [{B}, {T}, {Q}] "
+                f"(max abs err {err10})")
+        ends = {k: int((kinds == i).sum()) for i, k in enumerate(
+            ("at column 0", "stalled on the top row", "stopped at the band's edge",
+             "on a row past the consensus"))}
+        leaps = int((want[1][1:].to(torch.int64) - want[1][:-1] >= BW).any(dim=0).sum())
+        ms9 = cuda_ms(lambda: bc.nw_moves_banded(cw, tl, fr, ql, r0, r1, T, Q, BW))
+        ms10 = cuda_ms(lambda: bc.traceback_banded(*fwd, ql, fr, wt, T, Q, BW))
+        b9, by9, p9 = banded_forward_bound(tl, B, T, Q, BW)
+        b10, by10, p10 = banded_walk_bound(steps, ww[0], ww[2], B, T)
+        log(
+            f"K9/K10 {name} [B, T, Q, BW] = [{B}, {T}, {Q}, {BW}]: bit-equal (max_abs_err "
+            f"{err9}, {err10}); {int((ql == 0).sum())} rows with qlen 0, {leaps} fragments "
+            f"whose band start leaps by BW or more; walks: " + ", ".join(
+                f"{v} {k}" for k, v in ends.items()) + f"; {p10['moves']} moves, "
+            f"{p10['votes']} votes"
+        )
+        log(
+            f"  K9 {ms9:.4f} ms, bound {b9:.4f} ms by {by9} ({b9 / ms9:.3f} of it "
+            f"reached); K10 {ms10:.4f} ms, bound {b10:.4f} ms by {by10} "
+            f"({b10 / ms10:.3f} of it reached)"
+        )
+        if name == "walks from row 0":
+            require(ends["stalled on the top row"] > 0,
+                    "no walk of the row-0 case stalled on the top row")
+        if name == "off the band":
+            require(ends["stopped at the band's edge"] > 0,
+                    "no walk of the raised-band case stopped at the band's edge")
+        if name == "one-row spans":
+            require(leaps > 0, "no band start of the one-row case leapt by BW")
+        if name == "bank chunk":
+            plain9 = cuda_ms(lambda: bc.nw_moves_banded_plain(cw, tl, fr, ql, r0, r1, T, Q, BW),
+                             runs=3, warmup=1)
+            plain10 = cuda_ms(lambda: bc.traceback_banded_plain(*fwd, ql, fr, wt, T, Q, BW),
+                              runs=3, warmup=1)
+            log(f"  plain versions: K9 {plain9:.4f} ms, K10 {plain10:.4f} ms; K2 at the "
+                f"same chunk (phase 6, Q = 768, full NW) {k2_ms:.4f} ms against K9 + K10 "
+                f"{ms9 + ms10:.4f} ms")
+            log(
+                f"  K9 bound parts: {p9['bytes']} B at {HBM_BYTES_PER_S:.3g} B/s = "
+                f"{p9['bytes_ms']:.4f} ms; {p9['cells']} band cells x "
+                f"{K9_INSTR_PER_CELL} = {p9['int_ops']} integer instructions at "
+                f"{INT_INSTR_PER_S:.4g}/s = {p9['ops_ms']:.4f} ms (information: at "
+                f"{K9_INT32_INSTR_PER_CELL} scalar int32 instructions a cell, "
+                f"{p9['cells'] * K9_INT32_INSTR_PER_CELL / INT_INSTR_PER_S * 1e3:.4f} ms)"
+            )
+            log(
+                f"  K10 bound parts: {p10['bytes']} B at {HBM_BYTES_PER_S:.3g} B/s = "
+                f"{p10['bytes_ms']:.4f} ms; {p10['moves']} moves x {K10_INSTR_PER_STEP} = "
+                f"{p10['int_ops']} integer instructions at {INT_INSTR_PER_S:.4g}/s = "
+                f"{p10['ops_ms']:.4f} ms"
+            )
+            walk = int(steps.max())
+            log(
+                f"  K10 serial floor (information): the longest walk, {walk} moves, x "
+                f"{K10_CHAIN_CYCLES} dependent cycles a move at {SM_CLOCK_HZ:.3g} Hz = "
+                f"{walk * K10_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3:.4f} ms"
+            )
+            k9 = {"max_abs_err": err9, "ms": ms9, "plain_ms": plain9, "bound_ms": b9,
+                  "bound_by": by9, "shape": [B, T, Q, BW], "k2_ms": k2_ms}
+            k10 = {"max_abs_err": err10, "ms": ms10, "plain_ms": plain10, "bound_ms": b10,
+                   "bound_by": by10, "shape": [B, T, Q, BW]}
+    return k9, k10
+
+
+@contextlib.contextmanager
+def device_split(split: dict, parts: dict):
+    """Split calls of the functions in `parts` ({(module, name): part}) into
+    `split` (seconds summed over the calls): "host prep" on the host clock,
+    any other part as the device time between CUDA events recorded around
+    each call, read once the calls are done."""
+    import torch
+
     events = []
 
     def wrap(part, fn):
@@ -1033,6 +1292,36 @@ def band_consensus_split(split: dict):
         torch.cuda.synchronize()
         for part, start, end in events:
             split[part] = split.get(part, 0.0) + start.elapsed_time(end) / 1e3
+
+
+def band_consensus_split(split: dict):
+    """Split the shift-banded consensus calls into `split`: the host prep
+    of each group, K3, K4, the vote epilogue and the K5 torch ops (run map,
+    canonicalisation, rebuild)."""
+    from raven_tpu_torch.ops import band_cuda, consensus_band
+
+    return device_split(split, {
+        (consensus_band, "_prepare_group"): "host prep",
+        (band_cuda, "band_forward"): "K3",
+        (band_cuda, "mask_walk_votes"): "K4",
+        (band_cuda, "vote_tables"): "epilogue",
+        (consensus_band, "_run_map_device"): "K5 torch ops",
+        (consensus_band, "canonicalize_ins"): "K5 torch ops",
+        (consensus_band, "_rebuild_device"): "K5 torch ops",
+    })
+
+
+def banded_consensus_split(split: dict):
+    """Split the anchored banded consensus calls into `split`: K9, K10 and
+    the vote epilogue (the rest of each call is host work: layout, uploads,
+    the anchors' rescale and the rebuild)."""
+    from raven_tpu_torch.ops import banded_cuda
+
+    return device_split(split, {
+        (banded_cuda, "nw_moves_banded"): "K9",
+        (banded_cuda, "traceback_banded"): "K10",
+        (banded_cuda, "votes_from_primitives"): "epilogue",
+    })
 
 
 @contextlib.contextmanager
@@ -1073,7 +1362,8 @@ def polisher_stage_walls(walls: dict, consensus_calls: list):
             setattr(Polisher, n, fn)
 
 
-def polish_run(device, work_dir, draft, flags, split=None, genome_size=1_000_000):
+def polish_run(device, work_dir, draft, flags, split=None, splitter=band_consensus_split,
+               genome_size=1_000_000):
     """The main path with polish on phase 4's reads with `flags`: one
     contig of at least 0.97 of the genome at an edit-distance rate of
     ED_RATE_CEILING or less, with the crossing DP on the card.  `draft` is
@@ -1081,8 +1371,8 @@ def polish_run(device, work_dir, draft, flags, split=None, genome_size=1_000_000
     truth span and orientation the polished contig aligns to (a draft at ~5%
     error has too few exact 48-mers for contig_ed's own anchoring, and its
     fallback aligns the whole genome in both orientations, which takes
-    minutes).  With `split`, the shift-banded consensus calls are split
-    into it (band_consensus_split)."""
+    minutes).  With `split`, the device consensus calls are split into it
+    by `splitter`."""
     from raven_tpu_torch.io.readset import reverse_complement
     from raven_tpu_torch.ops.edit_distance import edit_distance_banded
     from raven_tpu_torch.utils.synth import _anchor_span, contig_ed
@@ -1092,7 +1382,7 @@ def polish_run(device, work_dir, draft, flags, split=None, genome_size=1_000_000
     with contextlib.ExitStack() as stack:
         stack.enter_context(polisher_stage_walls(walls, calls))
         if split is not None:
-            stack.enter_context(band_consensus_split(split))
+            stack.enter_context(splitter(split))
         run = cli_run(device, work_dir, genome_size, flags=flags)
     genome = run["genome"]
     lengths = run["lengths"]
@@ -1125,7 +1415,8 @@ def polish_run(device, work_dir, draft, flags, split=None, genome_size=1_000_000
         f"{span} bp truth span = {rate * 100:.4f}% (unpolished -p 0 contig "
         f"{draft.size} bp: {ed0} over {span0} bp = {rate0 * 100:.4f}%; "
         f"metric {t_ed:.1f} s); K2 launches {run['k2_launches']}; K3 launches "
-        f"{run['k3_launches']}; K4 launches {run['k4_launches']}; crossing-DP "
+        f"{run['k3_launches']}; K4 launches {run['k4_launches']}; K9 launches "
+        f"{run['k9_launches']}; K10 launches {run['k10_launches']}; crossing-DP "
         f"runs on the card {run['dp_runs']}"
     )
     require(rate <= ED_RATE_CEILING,
@@ -1168,6 +1459,28 @@ def phase_polish_default(device, work_dir, draft):
     return run
 
 
+def phase_polish_banded(device, work_dir, draft):
+    """-p 2 with the anchored banded device consensus in chunks of 8 x 256
+    fragment rows in both rounds (the reference's `-c 8 -b`), every core for
+    the host stages."""
+    flags = ("-p", "2", "--device-poa-batches", "8", "--device-banded-alignment",
+             "-t", str(os.cpu_count()))
+    split: dict = {}
+    run = polish_run(device, work_dir, draft, flags, split=split,
+                     splitter=banded_consensus_split)
+    engines = [r["engine"] for r in run["polish_rounds"]]
+    require(engines == ["device", "device"], f"polish engines {engines}")
+    require(run["k9_launches"] == run["k10_launches"] > 0,
+            f"the banded polish launched K9 {run['k9_launches']} and K10 "
+            f"{run['k10_launches']} times")
+    wall = sum(c["seconds"] for c in run["consensus_calls"])
+    log(f"  anchored banded consensus calls {wall:.3f} s: " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in split.items()
+    ) + " (device time between CUDA events around each call; the rest is host work)")
+    run["banded_split"] = split
+    return run
+
+
 # -------------------------------------------------------------------- main
 def run() -> dict:
     import torch
@@ -1203,8 +1516,8 @@ def run() -> dict:
         cwd=REPO,
     )
     try:
-        csrc.build_all(["sketch", "consensus", "band"])
-        for name in ("sketch", "consensus", "band"):
+        csrc.build_all(["sketch", "consensus", "band", "banded"])
+        for name in ("sketch", "consensus", "band", "banded"):
             log(f"nvcc {name}.cu: done {csrc.BUILD_SECONDS.get(name, 0.0):.2f} s "
                 f"after the builds started (0 when build/cuda/lib{name}.so was "
                 "up to date)")
@@ -1225,8 +1538,10 @@ def run() -> dict:
     lay = phase_layout(device)
     k2 = phase_votes(device)
     k3, k4 = phase_band(device)
+    k9, k10 = phase_banded(device, k2["ms"])
     pol = phase_polish(device, work, main_path["contigs"][0])
     dflt = phase_polish_default(device, work, main_path["contigs"][0])
+    bnd = phase_polish_banded(device, work, main_path["contigs"][0])
 
     kernels = [{
         "name": "segment_sketch",
@@ -1238,6 +1553,7 @@ def run() -> dict:
         "launches_repeat_cli": repeat_path["launches"],
         "launches_polish_cli": pol["launches"],
         "launches_default_polish_cli": dflt["launches"],
+        "launches_banded_polish_cli": bnd["launches"],
         "equal": True,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
@@ -1291,6 +1607,35 @@ def run() -> dict:
         "bound_by": k4["bound_by"],
         "library_ms": None,
         "shape": k4["shape"],
+    }, {
+        "name": "nw_moves_banded",
+        "route": "cuda",
+        "source": "raven_tpu_torch/csrc/banded.cu",
+        "replaces": "raven_tpu/ops/consensus_device.py:163",
+        "launches": bnd["k9_launches"],
+        "equal": True,
+        "max_abs_err": k9["max_abs_err"],
+        "ms": k9["ms"],
+        "plain_ms": k9["plain_ms"],
+        "bound_ms": k9["bound_ms"],
+        "bound_by": k9["bound_by"],
+        "library_ms": None,
+        "shape": k9["shape"],
+        "k2_ms_same_chunk": k9["k2_ms"],
+    }, {
+        "name": "traceback_banded",
+        "route": "cuda",
+        "source": "raven_tpu_torch/csrc/banded.cu",
+        "replaces": "raven_tpu/ops/consensus_device.py:304",
+        "launches": bnd["k10_launches"],
+        "equal": True,
+        "max_abs_err": k10["max_abs_err"],
+        "ms": k10["ms"],
+        "plain_ms": k10["plain_ms"],
+        "bound_ms": k10["bound_ms"],
+        "bound_by": k10["bound_by"],
+        "library_ms": None,
+        "shape": k10["shape"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(smi)

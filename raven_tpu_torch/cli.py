@@ -6,9 +6,9 @@ run order: [resume] -> load sequences -> construct -> assemble -> GFA dumps
 -> polish -> GFA dumps -> unitig FASTA to stdout.  Polishing (`-p` above 0)
 runs raven_tpu's hybrid schedule: host POA rounds, then the shift-banded
 device consensus in the last round; `--device-poa-batches B` selects the
-full-NW device consensus for every round instead.  The anchored banded
-engine (`--device-banded-alignment`) is not ported yet: asking for it with
-`-p` above 0 exits with status 2.
+full-NW device consensus for every round instead, and
+`--device-banded-alignment` its anchored banded form (in every round with
+`--device-poa-batches`, else in the last).
 """
 
 from __future__ import annotations
@@ -79,16 +79,6 @@ def main(argv: list[str] | None = None, timings: dict | None = None) -> int:
     if not args.sequences and not args.resume:
         build_parser().print_help()
         return 0
-    if args.polishing_rounds > 0 and args.device_banded_alignment:
-        print(
-            f"[raven_tpu_torch::] error: -p {args.polishing_rounds} asks for "
-            "the anchored banded consensus (--device-banded-alignment), which "
-            "arrives in a later slice of the port; run without "
-            "--device-banded-alignment, or with -p 0 for an unpolished "
-            "assembly",
-            file=sys.stderr,
-        )
-        return 2
 
     from raven_tpu_torch.device import resolve_device
     from raven_tpu_torch.graph import (

@@ -30,11 +30,15 @@ from raven_tpu_torch.utils import stagedump
 INDEX_BATCH_BYTES = 1 << 32
 
 
-def _index_batch_bytes() -> int:
-    """Effective index-batch budget: the reference's, clamped to what one
-    device index holds (MAX_ENTRIES entries at ~3 bases each, with ~10%
-    headroom), so a genome beyond it streams as several device-sized
-    batches instead of declining to the host build."""
+def _index_batch_bytes(device) -> int:
+    """Effective index-batch budget for an index on `device`: on the CPU
+    the reference's 2^32, as raven_tpu keeps it on a CPU backend; on a card
+    clamped to what one device index holds (MAX_ENTRIES entries at ~3 bases
+    each, with ~10% headroom), so a genome beyond it streams as several
+    device-sized batches instead of declining to the host build (raven_tpu
+    clamps to its partitioned index's ceiling, not ported yet)."""
+    if device.type == "cpu":
+        return INDEX_BATCH_BYTES
     cap = int(MAX_ENTRIES * 3 * 0.9)
     return min(INDEX_BATCH_BYTES, cap)
 MAP_BATCH_BYTES = 1 << 30  # construct.cc:67
@@ -117,7 +121,7 @@ def find_overlaps_and_create_piles(
 
     batch_start = 0
     bytes_acc = 0
-    batch_bytes = _index_batch_bytes()
+    batch_bytes = _index_batch_bytes(index.device)
     for i in range(n):
         bytes_acc += int(lengths[i])
         if i != n - 1 and bytes_acc < batch_bytes:

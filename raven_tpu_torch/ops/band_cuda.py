@@ -27,7 +27,9 @@ import torch
 
 NEG = -(1 << 20)
 MATCH, MISMATCH, GAP = 3, -5, -4
-KERNEL_BW = 256  # the band width the kernels take: 32 lanes of 8 band lanes
+# the band width the kernels take: K3 runs two fragments a warp at 16 band
+# lanes a lane, K4 8 lanes a fragment
+KERNEL_BW = 256
 LAUNCHES = {"band_forward": 0, "mask_walk_votes": 0}
 
 

@@ -1,18 +1,20 @@
 """Batched window consensus on the device (the polisher's device path).
 
-The port of raven_tpu/ops/consensus_device.py, full-NW path only: every
-window fragment aligns to its window's working consensus in one
-rectangular NW (scores 3/-5/-4, free consensus prefix and suffix), the
-traceback turns each alignment into per-row vote primitives (kernel K2,
-ops/consensus_cuda.py), the votes sum into per-window tables on the
-device, and the host rebuilds each consensus from them.  Iterations
-refine the consensus against the same fragments.
+The port of raven_tpu/ops/consensus_device.py: every window fragment aligns
+to its window's working consensus in one batched NW (scores 3/-5/-4, free
+consensus prefix and suffix), the traceback turns each alignment into
+per-row vote primitives, the votes sum into per-window tables on the
+device, and the host rebuilds each consensus from them.  Iterations refine
+the consensus against the same fragments.  Two engines: the full-NW
+rectangle (kernel K2, ops/consensus_cuda.py) and, with banded=True, the
+anchored banded NW whose band follows each fragment's placement on the
+window (kernels K9 and K10, ops/banded_cuda.py).
 
 Shapes are those of raven_tpu: consensus rows padded to t_pad, fragments
 to q_pad, fragment rows to whole chunks, windows to a power of two.  The
 host helpers homopolymer_run_map, consensus_votes and rebuild_consensus
-are copies.  The anchored banded NW and the mesh-sharded votes are not
-ported yet (a later slice); asking for them raises.
+are copies.  The mesh-sharded votes are not ported yet (a later slice);
+asking for them raises.
 """
 
 from __future__ import annotations
@@ -21,7 +23,16 @@ import numpy as np
 import torch
 
 from raven_tpu_torch.device import resolve_device
+from raven_tpu_torch.ops.banded_cuda import check_kernel_shape, fused_votes_banded
 from raven_tpu_torch.ops.consensus_cuda import fused_votes
+
+
+def _pow2_of(v: int, lo: int = 128) -> int:
+    c = lo
+    while c < v:
+        c <<= 1
+    return c
+
 
 def device_window_consensus(
     windows: list[tuple[np.ndarray, list[np.ndarray], list[np.ndarray] | None]],
@@ -36,62 +47,43 @@ def device_window_consensus(
     """Batched consensus for many windows at once, on `device` (CUDA by
     default).
 
-    windows: [(backbone, fragments, weights-or-None[, spans])].  Returns one
-    consensus array per window, token for token what raven_tpu's
-    device_window_consensus(banded=False) returns.  Each iteration sends
-    every chunk of `chunk` fragment rows through fused_votes and sums the
-    tables, as raven_tpu's fused_votes_scan_kernel does.
+    windows: [(backbone, fragments, weights-or-None[, spans])], spans one
+    (r0, r1) placement on the backbone a fragment, (0, len(backbone)) when
+    absent.  Returns one consensus array per window, token for token what
+    raven_tpu's device_window_consensus returns.  Each iteration sends every
+    chunk of `chunk` fragment rows through fused_votes (banded: through
+    fused_votes_banded, with the anchors rescaled to the current consensus
+    lengths) and sums the tables, as raven_tpu's fused_votes_scan_kernel
+    (fused_votes_banded_scan_kernel) does.
     """
-    if banded or mesh is not None:
+    if mesh is not None:
         raise NotImplementedError(
-            "the anchored banded consensus and the mesh-sharded votes are "
-            "not ported yet (a later slice of the port); this slice runs the "
-            "full-NW consensus on one device"
+            "the mesh-sharded votes are not ported yet (a later slice of the "
+            "port); this slice runs the window consensus on one device"
         )
     device = resolve_device(device)
+    # the anchored band's width (lane-aligned)
+    BW = min(256, _pow2_of(q_pad))
+    if banded and device.type == "cuda":
+        try:
+            check_kernel_shape(t_pad, q_pad, BW)
+        except ValueError as e:
+            raise NotImplementedError(
+                f"q_pad={q_pad} gives a band of {BW}: {e}"
+            ) from None
     n_win = len(windows)
-    windows = [(w[0], w[1], w[2]) for w in windows]
-    cons = [np.asarray(b, np.uint8) for b, _, _ in windows]
-
-    # flatten fragments once
-    frag_rows: list[np.ndarray] = []
-    weight_rows: list[np.ndarray] = []
-    win_of: list[int] = []
-    any_weights = any(wt is not None for _, _, wt in windows)
-    for wi, (_, frags, wts) in enumerate(windows):
-        for fi, f in enumerate(frags):
-            f = np.asarray(f, np.uint8)[:q_pad]
-            frag_rows.append(f)
-            if any_weights:
-                wrow = (
-                    np.asarray(wts[fi], np.uint8)[:q_pad]
-                    if wts is not None
-                    else np.full(f.size, 1, np.uint8)
-                )
-                weight_rows.append(wrow)
-            win_of.append(wi)
-    B_total = len(frag_rows)
+    cons = [np.asarray(w[0], np.uint8) for w in windows]
+    frags_arr, w_arr, q_lens, win_of_arr, span0, span1, B_total = flatten_fragments(
+        windows, q_pad, chunk
+    )
     if B_total == 0:
         return cons
-    # pad rows to a whole number of chunks and windows to a power of two
-    n_chunks = -(-B_total // chunk)
-    B_pad = n_chunks * chunk
+    B_pad = frags_arr.shape[0]
     NWIN = 8
     while NWIN < n_win:
         NWIN *= 2
-    win_of_arr = np.zeros(B_pad, dtype=np.int32)
-    win_of_arr[:B_total] = np.array(win_of, dtype=np.int32)
-    q_lens = np.zeros(B_pad, dtype=np.int32)
-    q_lens[:B_total] = [f.size for f in frag_rows]
-    frags_arr = np.full((B_pad, q_pad), -1, dtype=np.int32)
-    for i, f in enumerate(frag_rows):
-        frags_arr[i, : f.size] = f
-    w_arr = np.ones((B_pad, q_pad), dtype=np.int32)
-    if any_weights:
-        w_arr[:] = 0
-        for i, wrow in enumerate(weight_rows):
-            w_arr[i, : wrow.size] = wrow
     n_frags = np.bincount(win_of_arr[:B_total], minlength=n_win)
+    bb_lens = [len(w[0]) for w in windows]
 
     # fragments and weights do not change between iterations: on the
     # device once
@@ -101,26 +93,33 @@ def device_window_consensus(
     winof_dev = torch.from_numpy(win_of_arr).to(device)
 
     for _ in range(iterations):
-        cons_arr = np.full((NWIN, t_pad), -1, dtype=np.int32)
-        cons_lens = np.zeros(NWIN, dtype=np.int32)
-        for wi, c in enumerate(cons):
-            cl = min(c.size, t_pad)
-            cons_arr[wi, :cl] = c[:cl]
-            cons_lens[wi] = cl
+        cons_arr, cons_lens = pad_consensus(cons, t_pad, NWIN)
         cons_runs = homopolymer_run_map(cons_arr, cons_lens)
         cons_dev = torch.from_numpy(cons_arr).to(device)
         clens_dev = torch.from_numpy(cons_lens).to(device)
         cruns_dev = torch.from_numpy(cons_runs).to(device)
+        if banded:
+            r0, r1 = rescale_anchors(span0, span1, win_of_arr, B_total, cons_lens, bb_lens)
+            r0_dev = torch.from_numpy(r0).to(device)
+            r1_dev = torch.from_numpy(r1).to(device)
 
         bv = torch.zeros((NWIN, t_pad, 5), dtype=torch.int32, device=device)
         iv = torch.zeros((NWIN, t_pad + 1, 4), dtype=torch.int32, device=device)
         cv = torch.zeros((NWIN, t_pad), dtype=torch.int32, device=device)
         for c0 in range(0, B_pad, chunk):
             sl = slice(c0, c0 + chunk)
-            b_, i_, c_ = fused_votes(
-                cons_dev, clens_dev, cruns_dev, frags_dev[sl], qlens_dev[sl],
-                wts_dev[sl], winof_dev[sl], t_pad, q_pad, NWIN,
-            )
+            if banded:
+                b_, i_, c_ = fused_votes_banded(
+                    cons_dev, clens_dev, cruns_dev, frags_dev[sl],
+                    qlens_dev[sl], wts_dev[sl], winof_dev[sl], r0_dev[sl],
+                    r1_dev[sl], t_pad, q_pad, BW, NWIN,
+                )
+            else:
+                b_, i_, c_ = fused_votes(
+                    cons_dev, clens_dev, cruns_dev, frags_dev[sl],
+                    qlens_dev[sl], wts_dev[sl], winof_dev[sl], t_pad, q_pad,
+                    NWIN,
+                )
             bv += b_
             iv += i_
             cv += c_
@@ -140,6 +139,86 @@ def device_window_consensus(
             for wi in range(n_win)
         ]
     return cons
+
+
+def flatten_fragments(windows, q_pad: int, chunk: int):
+    """The fragment rows of `windows` ((backbone, fragments, weights-or-None[,
+    spans]) each) in window order, cut to q_pad and padded to a whole number
+    of chunks of `chunk` rows.  Returns (frags [B_pad, q_pad] int32, pad -1;
+    wts [B_pad, q_pad] int32, 1 everywhere when no window has weights, else
+    0 past each fragment; q_lens, win_of, span0, span1 [B_pad] int32;
+    B_total, the rows that are fragments).  span0 / span1 is a fragment's
+    placement on its backbone, (0, len(backbone)) without spans, span1 at
+    least span0 + 1; padding rows are in window 0 with q_len 0 and (0, 1)."""
+    frag_rows: list[np.ndarray] = []
+    weight_rows: list[np.ndarray] = []
+    win_of: list[int] = []
+    span_rows: list[tuple[int, int]] = []
+    any_weights = any(w[2] is not None for w in windows)
+    for wi, w in enumerate(windows):
+        bb, frags, wts = w[:3]
+        spans = w[3] if len(w) > 3 else None
+        for fi, f in enumerate(frags):
+            f = np.asarray(f, np.uint8)[:q_pad]
+            frag_rows.append(f)
+            if any_weights:
+                wrow = (
+                    np.asarray(wts[fi], np.uint8)[:q_pad]
+                    if wts is not None
+                    else np.full(f.size, 1, np.uint8)
+                )
+                weight_rows.append(wrow)
+            win_of.append(wi)
+            span_rows.append(
+                tuple(spans[fi]) if spans is not None else (0, len(bb))
+            )
+    B_total = len(frag_rows)
+    B_pad = -(-B_total // chunk) * chunk
+    win_of_arr = np.zeros(B_pad, dtype=np.int32)
+    win_of_arr[:B_total] = np.array(win_of, dtype=np.int32)
+    q_lens = np.zeros(B_pad, dtype=np.int32)
+    q_lens[:B_total] = [f.size for f in frag_rows]
+    frags_arr = np.full((B_pad, q_pad), -1, dtype=np.int32)
+    for i, f in enumerate(frag_rows):
+        frags_arr[i, : f.size] = f
+    w_arr = np.ones((B_pad, q_pad), dtype=np.int32)
+    if any_weights:
+        w_arr[:] = 0
+        for i, wrow in enumerate(weight_rows):
+            w_arr[i, : wrow.size] = wrow
+    span0 = np.zeros(B_pad, dtype=np.int32)
+    span1 = np.ones(B_pad, dtype=np.int32)
+    span0[:B_total] = [s[0] for s in span_rows]
+    span1[:B_total] = [max(s[1], s[0] + 1) for s in span_rows]
+    return frags_arr, w_arr, q_lens, win_of_arr, span0, span1, B_total
+
+
+def pad_consensus(cons: list[np.ndarray], t_pad: int, NWIN: int):
+    """The working consensus of each window cut to t_pad: (cons_arr [NWIN,
+    t_pad] int32, pad -1; cons_lens [NWIN] int32, 0 past the windows)."""
+    cons_arr = np.full((NWIN, t_pad), -1, dtype=np.int32)
+    cons_lens = np.zeros(NWIN, dtype=np.int32)
+    for wi, c in enumerate(cons):
+        cl = min(c.size, t_pad)
+        cons_arr[wi, :cl] = c[:cl]
+        cons_lens[wi] = cl
+    return cons_arr, cons_lens
+
+
+def rescale_anchors(span0, span1, win_of, B_total: int, cons_lens, backbone_lens):
+    """The banded engine's anchors for one iteration, raven_tpu's rescale:
+    each fragment row's placement (span0, span1), in backbone rows, scaled
+    by its window's current consensus length over its backbone's length (at
+    least 1), in float64; r0 truncated, r1 truncated and at least r0 + 1.
+    Padding rows past B_total get (0, 1).  Returns (r0, r1) int32."""
+    orig_len = np.maximum(np.asarray(backbone_lens, dtype=np.float64), 1)
+    scale = cons_lens[: orig_len.size].astype(np.float64) / orig_len
+    sc = scale[win_of[:B_total]]
+    r0 = np.zeros(win_of.size, dtype=np.int32)
+    r1 = np.ones(win_of.size, dtype=np.int32)
+    r0[:B_total] = (span0[:B_total] * sc).astype(np.int32)
+    r1[:B_total] = np.maximum((span1[:B_total] * sc).astype(np.int32), r0[:B_total] + 1)
+    return r0, r1
 
 
 def homopolymer_run_map(cons_arr: np.ndarray, cons_lens: np.ndarray) -> np.ndarray:

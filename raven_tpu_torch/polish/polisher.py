@@ -412,13 +412,14 @@ class Polisher:
 
     # ------------------------------------------------------------------
     def _run_consensus(self, jobs):
-        """Dispatch window consensus jobs: the batched full-NW device
-        consensus when DeviceCfg.poa_batches > 0 (the reference's CUDA-POA
-        analog, chunks of poa_batches * 256 fragment rows), the shift-banded
-        device consensus when the device is asked for without it, C++/python
-        POA on the host when it is not.  The anchored banded engine
-        (DeviceCfg.banded_alignment) is not ported yet and raises
-        NotImplementedError."""
+        """Dispatch window consensus jobs: the batched device consensus
+        when the device is asked for (DeviceCfg.poa_batches > 0 asks for it
+        in every round), C++/python POA on the host when it is not.  On the
+        device, DeviceCfg.poa_batches or banded_alignment (the reference's
+        CUDA-POA flags) select raven_tpu's legacy engine: the full-NW
+        window consensus, anchored-banded with banded_alignment, in chunks
+        of poa_batches * 256 fragment rows (2048 without poa_batches);
+        without either, the shift-banded consensus."""
         use_dev = self.use_device_consensus
         dc = self.device_cfg
         if dc is not None and dc.poa_batches > 0:
@@ -428,25 +429,22 @@ class Polisher:
         if use_dev is None:
             use_dev = self.device.type != "cpu"
         if use_dev and jobs:
-            if dc is not None and dc.banded_alignment:
-                raise NotImplementedError(
-                    "the anchored banded device consensus "
-                    "(--device-banded-alignment) is not ported yet (a later "
-                    "slice of the port)"
-                )
             windows = [
                 (backbone, frag_codes, weights, spans)
                 for _, _, backbone, frag_codes, weights, spans in jobs
             ]
             self.last_engine = "device"
-            if dc is not None and dc.poa_batches > 0:
+            if dc is not None and (dc.poa_batches > 0 or dc.banded_alignment):
                 from raven_tpu_torch.ops.consensus_device import (
                     device_window_consensus,
                 )
 
+                kwargs = {}
+                if dc.poa_batches > 0:
+                    kwargs["chunk"] = 256 * dc.poa_batches
                 return device_window_consensus(
-                    windows, iterations=4, chunk=256 * dc.poa_batches,
-                    device=self.device,
+                    windows, iterations=4, banded=dc.banded_alignment,
+                    device=self.device, **kwargs,
                 )
             from raven_tpu_torch.ops.consensus_band import band_window_consensus
 

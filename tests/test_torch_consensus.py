@@ -232,8 +232,6 @@ def test_device_window_consensus_matches_jax():
 def test_unported_engines_raise():
     windows = [(np.zeros(10, np.uint8), [np.zeros(10, np.uint8)], None)]
     with pytest.raises(NotImplementedError, match="later slice"):
-        tcd.device_window_consensus(windows, banded=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
         tcd.device_window_consensus(windows, mesh=object(), device="cpu")
 
 

@@ -1,7 +1,7 @@
 """raven_tpu_torch stands alone: every module imports with jax blocked and
 loads nothing of raven_tpu; the default device is CUDA and raises without
-it; polishing with the consensus engine not ported yet (-p above 0 with
---device-banded-alignment) exits with status 2 instead of being skipped."""
+it; the CLI refuses no polishing flag (-p above 0 with
+--device-banded-alignment runs)."""
 
 import os
 import subprocess
@@ -60,16 +60,21 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         resolve_device("mps")
 
 
-def test_polishing_exits_with_status_2(tmp_path, capsys):
+def test_banded_polishing_exits_0(tmp_path, capsys):
     from raven_tpu_torch import cli
+    from raven_tpu_torch.config import GLOBALS
 
     reads = tmp_path / "reads.fa"
     reads.write_text(">r0\nACGTACGTACGT\n")
-    args = [str(reads), "-p", "1", "--device-banded-alignment", "--device", "cpu"]
-    assert cli.main(args) == 2
-    assert "later slice" in capsys.readouterr().err
-    # the default -p is 2, as in the reference, and is refused the same way
-    r = _run(["-m", "raven_tpu_torch", str(reads), "--device-banded-alignment", "--device", "cpu"])
-    assert r.returncode == 2
-    assert "later slice" in r.stderr
-    assert r.stdout == ""
+    args = [str(reads), "-p", "1", "--device-banded-alignment", "--device", "cpu",
+            "--disable-checkpoints"]
+    saved = GLOBALS.num_threads, GLOBALS.min_unitig_size
+    try:
+        assert cli.main(args) == 0
+    finally:
+        GLOBALS.num_threads, GLOBALS.min_unitig_size = saved
+    assert "error" not in capsys.readouterr().err
+    # the default -p is 2, as in the reference
+    r = _run(["-m", "raven_tpu_torch", str(reads), "--device-banded-alignment", "--device",
+              "cpu", "--disable-checkpoints"])
+    assert r.returncode == 0, r.stderr

@@ -82,3 +82,22 @@ def test_raven_tpu_checkpoint_assembles_the_same(reads, tmp_path, monkeypatch):
     got = [(n.name, n.sequence_str()) for n in tgraph.get_unitigs(got_graph, False)]
     assert len(want) >= 1
     assert got == want
+
+
+def test_index_batch_budget_matches_reference(monkeypatch):
+    """tests/test_misc.py::test_streaming_index_batch_clamp's budget: with
+    the index on the CPU the port batches at raven_tpu's 2^32 bases, as
+    raven_tpu does on a CPU backend; on a card it clamps below 2^32 to what
+    one device index holds."""
+    import torch
+
+    from raven_tpu.graph import construct as jconstruct
+    from raven_tpu_torch.graph import construct as tconstruct
+
+    monkeypatch.delenv("RAVEN_TPU_INDEX_BATCH_BASES", raising=False)
+    monkeypatch.delenv("RAVEN_TPU_DEVICE_MAP", raising=False)
+    assert jax.default_backend() == "cpu"
+    want = jconstruct._index_batch_bytes()
+    assert want == 1 << 32
+    assert tconstruct._index_batch_bytes(torch.device("cpu")) == want
+    assert tconstruct._index_batch_bytes(torch.device("cuda")) < (1 << 32)

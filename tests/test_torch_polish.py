@@ -3,8 +3,9 @@ raven_tpu's on the same inputs: the Polisher with the full-NW device
 consensus and the device crossing DP (DeviceCfg poa_batches and
 alignment_batches), with the shift-banded device consensus (the default
 engine), the host POA round, and the CLI's contig FASTA for `-p 2` and `-p 2
---device-poa-batches 1 --device-alignment-batches 1`, byte for byte; the
-anchored banded engine, not ported yet, raises or exits with status 2."""
+--device-poa-batches 1 --device-alignment-batches 1`, byte for byte.  The
+anchored banded engine (--device-banded-alignment) is held to raven_tpu's in
+tests/test_torch_banded_consensus.py."""
 
 import numpy as np
 import pytest
@@ -116,18 +117,6 @@ def test_polisher_shift_banded_consensus_matches_jax(setup):
     assert tp.last_engine == "device"
 
 
-def test_polisher_unported_engines_raise(setup):
-    reads, draft = setup
-    rs = TReadSet.from_sequences(reads)
-    for cfg in (
-        tconfig.DeviceCfg(poa_batches=1, banded_alignment=True),
-        tconfig.DeviceCfg(banded_alignment=True),
-    ):
-        p = TPolisher(device="cpu", use_device=True, device_cfg=cfg)
-        with pytest.raises(NotImplementedError, match="banded"):
-            p.polish([("Ctg0", draft)], rs)
-
-
 @pytest.fixture(scope="module")
 def reads_path(tmp_path_factory):
     """tests/test_torch_pipeline.py's 30 kb setup as a FASTA file."""
@@ -190,20 +179,6 @@ def test_cli_default_polish_contigs_byte_identical(reads_path, monkeypatch, caps
     got, want, timings = _run_both_clis(reads_path, flags, monkeypatch, capsys)
     assert got == want
     assert [r["engine"] for r in timings["polish_rounds"]] == ["host", "host"]
-
-
-@pytest.mark.parametrize(
-    "extra",
-    [["--device-poa-batches", "1", "--device-banded-alignment"], ["--device-banded-alignment"]],
-    ids=["banded-alignment", "banded-alignment-default"],
-)
-def test_cli_unported_engines_exit_2(reads_path, extra, capsys):
-    before = _globals()
-    assert tcli.main([str(reads_path), "-p", "2", "--device", "cpu", *extra]) == 2
-    err = capsys.readouterr().err
-    assert "later slice" in err
-    assert "anchored banded" in err
-    assert _globals() == before  # refused before any setting changes
 
 
 def test_bench_and_metric_copies_match():
