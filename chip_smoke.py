@@ -21,8 +21,11 @@ failure:
      ~115 Mbp): minimize -> filter -> map_many on the card, cold and
      steady, its overlap digest held against the port's host path run in
      a child process started before this process touches CUDA; one more
-     steady pass under torch.profiler gives the device's busy share and
-     the ops that take the most device time;
+     steady pass with the index forced into 3 hash-range parts (the
+     partitioned index that carries index batches above 2^28 entries)
+     must give the same overlaps; one more steady pass under
+     torch.profiler gives the device's busy share and the ops that take
+     the most device time;
   4. the main path: `raven_tpu_torch.cli.main([reads, "-p", "0", ...])` on
      a 1 Mb genome at 30x with indels, which must give one contig of at
      least 0.97 of the genome with every overlap index built by K1; then
@@ -56,18 +59,22 @@ failure:
      scores, the four vote primitives): the bank's first chunk as the
      anchored banded consensus lays it out, [B, T, Q, BW] = [2048, 640,
      768, 256] with full spans, a ragged B = 1237, partial spans at r0 > 0,
-     spans of one row (band starts that leap by BW or more), fragments twice
-     their consensus's length at Q = 1024, qlen 0 rows, all-mismatch rows,
-     walks from row 0 (some of which must stall on the top row), and K10 on
-     band starts raised under the moves (some walks must stop at the band's
-     edge); how the walks ended, median times over CUDA events beside the
-     bound and K2's time at the same chunk, and K10's serial floor;
+     spans of one row (band starts that leap by BW or more), steep spans of
+     2-250 rows beside full-span ones (band starts that step by 3 to BW - 1
+     a row, the two fragments of a warp stepping differently), fragments
+     twice their consensus's length at Q = 1024, qlen 0 rows, all-mismatch
+     rows, walks from row 0 (some of which must stall on the top row), and
+     K10 on band starts raised under the moves (some walks must stop at the
+     band's edge); how the walks ended, median times over CUDA events
+     beside the bound and K2's time at the same chunk, K10's serial floor,
+     and K9's and K10's SASS loop sizes;
   9. the main path with polish: `raven_tpu_torch.cli.main([reads, "-p",
      "2", "--device-poa-batches", "8", "-t", <cores>, ...])` on phase 4's
      1 Mb x 30x reads, which must give one contig of at least 0.97 of the
      genome at an edit-distance rate of 0.05% or less against the true
      genome (the synthetic golden gate), with K2 and the crossing DP run
-     on the card;
+     on the card, and the consensus calls split into K2 and the vote
+     epilogue;
  10. the default polish: the same reads through `-p 2 -t <cores>` (host
      POA in round 0, the shift-banded consensus on the card in round 1),
      with the same gate, K3 and K4 launched 64 times each, the crossing DP
@@ -140,16 +147,17 @@ SM_CLOCK_HZ = 1.98e9
 # beside the bound as information.)
 K9_INSTR_PER_CELL = 4
 K9_INT32_INSTR_PER_CELL = K3_INSTR_PER_CELL
+K9_CELLS_PER_LANE = 16  # band lanes a lane of K9 holds (csrc/banded.cu, C)
 # K10 needs at least 6 integer instructions per move of its walk: the move's
 # shift and mask (2), the band test (1), the next row and column (2), the
 # vote's select (1).
 K10_INSTR_PER_STEP = 6
-# K10's walk is one chain per fragment: a step's band start from shared
-# memory (~30 cycles on Hopper), the lane's offset and band test (2), the
-# move word's address and shared-memory load (1 and ~30), the move's
-# extraction and test (3) and the next row and column (2): 8 dependent
-# integer instructions of at least 4 cycles and two loads, at 1.98 GHz.
-K10_CHAIN_CYCLES = 8 * 4 + 2 * 30
+# K10's walk is one chain per fragment: a step's lane offset, its clamp and
+# the move word's address (4), the word's shared-memory load (~30 cycles on
+# Hopper), the move's extraction and test (3), and the next column and band
+# start (2; the next row's band start is read beside the word): 9 dependent
+# integer instructions of at least 4 cycles and one load, at 1.98 GHz.
+K10_CHAIN_CYCLES = 9 * 4 + 30
 BANDED_T, BANDED_Q, BANDED_BW = 640, 768, 256  # device_window_consensus's shapes
 BAND_DEFAULT_LAUNCHES = 64  # 16 groups of up to 128 windows x 4 iterations
 BAND_T, BAND_BW = 640, 256  # the shift-banded consensus's t_pad and band
@@ -197,7 +205,9 @@ def host_overlap_main(out_path: str, genome: int, cov: float) -> int:
 
 # ------------------------------------------------------------------ timing
 def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() over `runs` CUDA-event-timed calls."""
+    """Median milliseconds of fn() over `runs` CUDA-event-timed calls (one
+    call between two events: a kernel shorter than its wrapper's host work
+    before the launch is charged that work too)."""
     import torch
 
     for _ in range(warmup):
@@ -212,6 +222,31 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, runs: int = 20, warmup: int = 3):
+    """Median device time in milliseconds of the launches of `kernel` (a
+    substring of its name) over `runs` calls of fn(), from a torch.profiler
+    trace: the kernel's own time on the card, without its wrapper's host
+    work; None when the trace holds no such launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return statistics.median(times) if times else None
+
+
+def fmt_ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def sketch_bound(S: int, L: int, w: int) -> tuple[float, str, dict]:
@@ -416,6 +451,39 @@ def log_band_sass() -> None:
                 f"bound's {K3_INSTR_PER_CELL}")
 
 
+def log_banded_sass() -> None:
+    """K9's and K10's SASS: instructions, those of each loop, and the
+    largest loop's opcodes; K9's row loop over the band lanes a lane holds
+    is its instructions a cell on one pass of the loop's body (static: the
+    count includes the branches a row does not take, such as the
+    regathers for other band steps), against K9_INSTR_PER_CELL and the
+    int32 count; K10's largest loop is its walk."""
+    from raven_tpu_torch import csrc
+
+    so = os.path.join(csrc.build_dir(), "libbanded.so")
+    for kernel in ("nw_moves_banded_kernel", "traceback_banded_kernel"):
+        try:
+            n, loops = sass_loops(so, kernel)
+        except (OSError, subprocess.SubprocessError, StopIteration) as e:
+            log(f"  SASS of {kernel}: not read ({e!r})")
+            continue
+        spans = ", ".join(f"{k} at {a:#x}-{b:#x}" for k, a, b, _ in loops[:4])
+        log(f"  SASS of {kernel}: {n} instructions; loops (instructions): {spans}")
+        if not loops:
+            continue
+        ops = loops[0][3]
+        alu = sum(ops[o] for o in ALU_PIPE_OPS)
+        log(f"  its largest loop: {alu} of {loops[0][0]} on the integer ALU pipe "
+            f"({', '.join(f'{o} {c}' for o, c in ops.most_common(10))})")
+        if kernel == "nw_moves_banded_kernel":
+            log(f"  K9 row loop: {loops[0][0]} SASS instructions a lane a row (static) / "
+                f"{K9_CELLS_PER_LANE} band lanes a lane = {loops[0][0] / K9_CELLS_PER_LANE:.2f} a cell, against "
+                f"the bound's {K9_INSTR_PER_CELL} (16-bit pairs) and "
+                f"{K9_INT32_INSTR_PER_CELL} (int32)")
+        else:
+            log(f"  K10 walk loop: {loops[0][0]} SASS instructions (static)")
+
+
 # ------------------------------------------------------------------ phases
 def phase_sketch(readset, device):
     """K1 vs sketch_plain on real segment rows; returns the kernels entry
@@ -462,8 +530,12 @@ def phase_sketch(readset, device):
                 f"{parts['ops_ms']:.4f} ms"
             )
             if (k, w) == (15, 5) and S == rows:
+                dev = device_ms(lambda: sketch_cuda._kernel(codes, lens, k, w),
+                                "sketch_rows_kernel")
+                log(f"  device time (torch.profiler): {fmt_ms(dev)}")
                 main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound, "bound_by": by, "shape": [S, 2048]}
+                        "device_ms": dev, "bound_ms": bound, "bound_by": by,
+                        "shape": [S, 2048]}
     for k, w in ((15, 5), (12, 4), (11, 20)):
         for L in (2047, 1000):
             codes, lens = sketch_edge_case(codes_all, eff_all, 1237, L, k)
@@ -497,14 +569,19 @@ def sketch_edge_case(codes_all, eff_all, S: int, L: int, k: int):
     return codes.contiguous(), lens.contiguous()
 
 
-def overlap_stage(readset, device):
+def overlap_stage(readset, device, parts: int = 0):
+    """minimize -> filter -> map_many on `device`, with the index in
+    `parts` hash-range parts when 2 or more: (wall, stage walls, overlaps,
+    occurrence)."""
     import torch
 
+    from raven_tpu_torch.overlap.device_index import PartitionedIndex
     from raven_tpu_torch.overlap.engine import MinimizerIndex
 
     ids = np.arange(len(readset))
     t0 = time.perf_counter()
     idx = MinimizerIndex(K, W, device=device)
+    idx.INDEX_PARTS = parts
     idx.minimize(readset, ids, minhash=False, with_query_flags=True)
     torch.cuda.synchronize()  # each stage's wall holds its own device work
     t1 = time.perf_counter()
@@ -516,6 +593,9 @@ def overlap_stage(readset, device):
     t3 = time.perf_counter()
     require(idx._device is not None and idx._hashes is None,
             "overlap stage left the device path")
+    require(isinstance(idx._device, PartitionedIndex) == (parts > 1),
+            f"the index was not built in {parts} parts" if parts > 1
+            else "the index was partitioned")
     return t3 - t0, (t1 - t0, t2 - t1, t3 - t2), res, int(idx._occurrence)
 
 
@@ -579,6 +659,9 @@ def phase_overlap(readset, device, child, child_out):
     steady, parts_s, res2, _ = overlap_stage(readset, device)
     peak = torch.cuda.max_memory_allocated()
     require(overlap_digest(res2)[0] == digest, "steady pass differs from cold")
+    part_s, parts_p, res3, occ3 = overlap_stage(readset, device, parts=3)
+    require(overlap_digest(res3)[0] == digest and occ3 == occ,
+            "the index in 3 hash-range parts differs from the single index")
     profile_overlap(readset, device)
     log(
         f"overlap stage ({len(readset)} reads, {bases} bases): cold "
@@ -587,7 +670,9 @@ def phase_overlap(readset, device, child, child_out):
         f"{parts_s[0]:.3f}, filter {parts_s[1]:.3f}, map {parts_s[2]:.3f}); "
         f"{bases / steady:.1f} bases/s steady; {n_ov} overlaps; occurrence "
         f"{occ}; K1 launches {launches}; host declines {declines}; peak "
-        f"device memory {peak} B"
+        f"device memory {peak} B; the index in 3 hash-range parts (the "
+        f"partitioned index, forced) {part_s:.3f} s (minimize {parts_p[0]:.3f}, "
+        f"filter {parts_p[1]:.3f}, map {parts_p[2]:.3f}), the same overlaps"
     )
     require(launches > 0, "the overlap stage launched K1 no time")
     require(declines == 0, f"{declines} device-path declines")
@@ -887,7 +972,9 @@ def phase_votes(device):
             f"{parts['padded_cells']})"
         )
         if name == "chunk":
-            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            dev = device_ms(lambda: cc._kernel(*args), "votes_primitives_kernel")
+            log(f"  device time (torch.profiler): {fmt_ms(dev)}")
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev,
                     "bound_ms": bound, "bound_by": by, "shape": [B, T, Q],
                     "padded_bound_ms": parts["padded_cells"] * K2_INSTR_PER_CELL
                     / INT_INSTR_PER_S * 1e3,
@@ -1056,10 +1143,15 @@ def phase_band(device):
                 f"{T * K4_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3:.4f} ms"
             )
             log_band_sass()
-            k3 = {"max_abs_err": err3, "ms": ms3, "plain_ms": plain3, "bound_ms": b3,
-                  "bound_by": by3, "shape": [B, T, BW]}
-            k4 = {"max_abs_err": err4, "ms": ms4, "plain_ms": plain4, "bound_ms": b4,
-                  "bound_by": by4, "shape": [B, T, BW]}
+            dev3 = device_ms(lambda: bc.band_forward(cw, tl, fw, ql, r0, T, BW),
+                             "band_forward_kernel")
+            dev4 = device_ms(lambda: bc.mask_walk_votes(*want, fw, ql, r0, T, BW),
+                             "band_walk_kernel")
+            log(f"  device time (torch.profiler): K3 {fmt_ms(dev3)}, K4 {fmt_ms(dev4)}")
+            k3 = {"max_abs_err": err3, "ms": ms3, "plain_ms": plain3, "device_ms": dev3,
+                  "bound_ms": b3, "bound_by": by3, "shape": [B, T, BW]}
+            k4 = {"max_abs_err": err4, "ms": ms4, "plain_ms": plain4, "device_ms": dev4,
+                  "bound_ms": b4, "bound_by": by4, "shape": [B, T, BW]}
     return k3, k4
 
 
@@ -1113,6 +1205,12 @@ def banded_cases():
     cw, tl, fr, ql, r0, r1, wt = (a.copy() for a in chunk)
     r0 = (rng.random(r0.size) * tl).astype(np.int32)
     cases.append(("one-row spans", (cw, tl, fr, ql, r0, r0 + 1, wt)))
+    # every other fragment anchored on a span of 2-250 rows: its band start
+    # steps by ~3 to over 255 a row, beside a full-span fragment in its warp
+    steep = rng.random(r0.size) < 0.5
+    r0s = np.where(steep, (rng.random(r0.size) * tl * 0.7).astype(np.int32), chunk[4])
+    r1s = np.where(steep, r0s + rng.integers(2, 251, r0.size), chunk[5]).astype(np.int32)
+    cases.append(("steep spans", (cw, tl, fr, ql, r0s, r1s, wt)))
     # each fragment twice over: slope 2, at Q = 1024
     Q2 = 1024
     fr2 = np.full((fr.shape[0], Q2), -1, np.int32)
@@ -1149,6 +1247,20 @@ def banded_cases():
     return cases
 
 
+def first_diffs(got, want, names) -> str:
+    """Where each pair of equal-shaped tensors differs: its count of
+    differing entries and the first index."""
+    import torch
+
+    parts = []
+    for name, a, b in zip(names, got, want):
+        bad = (a != b).nonzero()
+        if bad.numel():
+            parts.append(f"{name}: {bad.shape[0]} entries, first at {bad[0].tolist()} "
+                         f"({int(a[tuple(bad[0])])} vs {int(b[tuple(bad[0])])})")
+    return "; ".join(parts)
+
+
 def phase_banded(device, k2_ms):
     """K9 and K10 vs their plain versions on the banded cases, bit for bit on
     every output, with how the walks ended; K10 also on the partial-span
@@ -1177,7 +1289,8 @@ def phase_banded(device, k2_ms):
                    for a, b in zip(got, want))
         require(all(torch.equal(a, b) for a, b in zip(got, want)),
                 f"K9 differs from nw_moves_banded_plain at {name} [{B}, {T}, {Q}] "
-                f"(max abs err {err9})")
+                f"(max abs err {err9}; " + first_diffs(
+                    got, want, ("moves", "offs", "end_scores", "row0")) + ")")
         fwd = list(want)
         if name == "off the band":
             raise_by = rng.integers(0, 40, fwd[1].shape) * (rng.random(fwd[1].shape) < 0.2)
@@ -1190,11 +1303,14 @@ def phase_banded(device, k2_ms):
                     for a, b in zip(gw, ww))
         require(all(torch.equal(a, b) for a, b in zip(gw, ww)),
                 f"K10 differs from traceback_banded_plain at {name} [{B}, {T}, {Q}] "
-                f"(max abs err {err10})")
+                f"(max abs err {err10}; " + first_diffs(
+                    gw, ww, ("col_sym", "col_w", "ins_b", "ins_w")) + ")")
         ends = {k: int((kinds == i).sum()) for i, k in enumerate(
             ("at column 0", "stalled on the top row", "stopped at the band's edge",
              "on a row past the consensus"))}
-        leaps = int((want[1][1:].to(torch.int64) - want[1][:-1] >= BW).any(dim=0).sum())
+        rise = want[1][1:].to(torch.int64) - want[1][:-1]  # band-start steps
+        leaps = int((rise >= BW).any(dim=0).sum())
+        steep = int(((rise >= 3) & (rise < BW)).any(dim=0).sum())
         ms9 = cuda_ms(lambda: bc.nw_moves_banded(cw, tl, fr, ql, r0, r1, T, Q, BW))
         ms10 = cuda_ms(lambda: bc.traceback_banded(*fwd, ql, fr, wt, T, Q, BW))
         b9, by9, p9 = banded_forward_bound(tl, B, T, Q, BW)
@@ -1202,7 +1318,8 @@ def phase_banded(device, k2_ms):
         log(
             f"K9/K10 {name} [B, T, Q, BW] = [{B}, {T}, {Q}, {BW}]: bit-equal (max_abs_err "
             f"{err9}, {err10}); {int((ql == 0).sum())} rows with qlen 0, {leaps} fragments "
-            f"whose band start leaps by BW or more; walks: " + ", ".join(
+            f"whose band start leaps by BW or more, {steep} whose band start steps by "
+            f"3 to BW - 1; walks: " + ", ".join(
                 f"{v} {k}" for k, v in ends.items()) + f"; {p10['moves']} moves, "
             f"{p10['votes']} votes"
         )
@@ -1219,6 +1336,8 @@ def phase_banded(device, k2_ms):
                     "no walk of the raised-band case stopped at the band's edge")
         if name == "one-row spans":
             require(leaps > 0, "no band start of the one-row case leapt by BW")
+        if name == "steep spans":
+            require(steep > 0, "no band start of the steep case stepped by 3 to BW - 1")
         if name == "bank chunk":
             plain9 = cuda_ms(lambda: bc.nw_moves_banded_plain(cw, tl, fr, ql, r0, r1, T, Q, BW),
                              runs=3, warmup=1)
@@ -1247,10 +1366,16 @@ def phase_banded(device, k2_ms):
                 f"{K10_CHAIN_CYCLES} dependent cycles a move at {SM_CLOCK_HZ:.3g} Hz = "
                 f"{walk * K10_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3:.4f} ms"
             )
-            k9 = {"max_abs_err": err9, "ms": ms9, "plain_ms": plain9, "bound_ms": b9,
-                  "bound_by": by9, "shape": [B, T, Q, BW], "k2_ms": k2_ms}
-            k10 = {"max_abs_err": err10, "ms": ms10, "plain_ms": plain10, "bound_ms": b10,
-                   "bound_by": by10, "shape": [B, T, Q, BW]}
+            log_banded_sass()
+            dev9 = device_ms(lambda: bc.nw_moves_banded(cw, tl, fr, ql, r0, r1, T, Q, BW),
+                             "nw_moves_banded_kernel")
+            dev10 = device_ms(lambda: bc.traceback_banded(*fwd, ql, fr, wt, T, Q, BW),
+                              "traceback_banded_kernel")
+            log(f"  device time (torch.profiler): K9 {fmt_ms(dev9)}, K10 {fmt_ms(dev10)}")
+            k9 = {"max_abs_err": err9, "ms": ms9, "plain_ms": plain9, "device_ms": dev9,
+                  "bound_ms": b9, "bound_by": by9, "shape": [B, T, Q, BW], "k2_ms": k2_ms}
+            k10 = {"max_abs_err": err10, "ms": ms10, "plain_ms": plain10, "device_ms": dev10,
+                   "bound_ms": b10, "bound_by": by10, "shape": [B, T, Q, BW]}
     return k9, k10
 
 
@@ -1308,6 +1433,18 @@ def band_consensus_split(split: dict):
         (consensus_band, "_run_map_device"): "K5 torch ops",
         (consensus_band, "canonicalize_ins"): "K5 torch ops",
         (consensus_band, "_rebuild_device"): "K5 torch ops",
+    })
+
+
+def votes_consensus_split(split: dict):
+    """Split the full-NW consensus calls into `split`: K2 and the vote
+    epilogue it shares with the anchored banded engine (the rest of each
+    call is host work)."""
+    from raven_tpu_torch.ops import consensus_cuda
+
+    return device_split(split, {
+        (consensus_cuda, "votes_primitives"): "K2",
+        (consensus_cuda, "votes_from_primitives"): "epilogue",
     })
 
 
@@ -1430,12 +1567,20 @@ def polish_run(device, work_dir, draft, flags, split=None, splitter=band_consens
 
 def phase_polish(device, work_dir, draft):
     """-p 2 with the full-NW device consensus in chunks of 8 x 256
-    fragment rows in both rounds, every core for the host stages."""
+    fragment rows in both rounds, every core for the host stages; the
+    consensus calls split into K2 and the vote epilogue."""
     flags = ("-p", "2", "--device-poa-batches", "8", "-t", str(os.cpu_count()))
-    run = polish_run(device, work_dir, draft, flags)
+    split: dict = {}
+    run = polish_run(device, work_dir, draft, flags, split=split,
+                     splitter=votes_consensus_split)
     require(run["k2_launches"] > 0, "the polish run launched K2 no time")
     require(all(r["engine"] == "device" for r in run["polish_rounds"]),
             "a polish round left the device consensus")
+    wall = sum(c["seconds"] for c in run["consensus_calls"])
+    log(f"  full-NW consensus calls {wall:.3f} s: " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in split.items()
+    ) + " (device time between CUDA events around each call; the rest is host work)")
+    run["votes_split"] = split
     return run
 
 
@@ -1558,6 +1703,7 @@ def run() -> dict:
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
+        "device_ms": k1["device_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": None,
@@ -1572,6 +1718,7 @@ def run() -> dict:
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
+        "device_ms": k2["device_ms"],
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
         "library_ms": None,
@@ -1589,6 +1736,7 @@ def run() -> dict:
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
+        "device_ms": k3["device_ms"],
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": None,
@@ -1603,6 +1751,7 @@ def run() -> dict:
         "max_abs_err": k4["max_abs_err"],
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
+        "device_ms": k4["device_ms"],
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
         "library_ms": None,
@@ -1617,6 +1766,7 @@ def run() -> dict:
         "max_abs_err": k9["max_abs_err"],
         "ms": k9["ms"],
         "plain_ms": k9["plain_ms"],
+        "device_ms": k9["device_ms"],
         "bound_ms": k9["bound_ms"],
         "bound_by": k9["bound_by"],
         "library_ms": None,
@@ -1632,6 +1782,7 @@ def run() -> dict:
         "max_abs_err": k10["max_abs_err"],
         "ms": k10["ms"],
         "plain_ms": k10["plain_ms"],
+        "device_ms": k10["device_ms"],
         "bound_ms": k10["bound_ms"],
         "bound_by": k10["bound_by"],
         "library_ms": None,

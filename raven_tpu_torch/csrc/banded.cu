@@ -50,37 +50,101 @@
 // T + 1], 5 / 0 and -1 / 0 where nothing was cast (K2's primitives; the
 // vote epilogue raven_tpu_torch/ops/consensus_cuda.py serves both engines).
 //
-// What bounds them on an H100.  K9: integer instructions.  Each band cell
-// needs at the fewest K3's 10 (the score's compare and select, the diag add,
-// the up add fused with the max, the which-won predicate, the closure as one
+// What bounds them on an H100.  K9: integer instructions.  Its recurrence is
+// K2's, so at the fewest K2's 4 a band cell on 16-bit pair instructions, or
+// K3's 10 in int32 (the score's compare and select, the diag add, the up
+// add fused with the max, the which-won predicate, the closure as one
 // add-max, the left predicate, the domain's compare and select, one pack of
-// the move bits), plus the regather of two previous-row values, which in
-// this layout is shared-memory traffic; 335 M cells at the engine's chunk
-// ([2048, 640, 256]) against ~107 MB of traffic.  K10: the serial walk,
-// up to T + Q dependent steps a fragment, and its traffic (the end scores,
-// the primitives written whole, a move word and band start a walked row).
+// the move bits); 259 M cells within the consensus at the engine's chunk
+// ([2048, 640, 768, 256]) against ~106 MB of traffic.  K10: its traffic (the
+// end scores, a move word and band start for each move of the walks, the
+// primitives written once) and the walk's serial length: up to T + Q
+// dependent steps a fragment.
 //
-// Design (first version: simple and right; the engine's band of BW = 256):
-//   * K9.  One warp a fragment, four a block; lane l holds band lanes
-//     8l .. 8l + 7.  The fragment (with the pad at j == 0) and the previous
-//     row live in shared memory, each word s at s + s / 8, so that the 32
-//     lanes reading 8 consecutive words each hit 32 different banks; the
-//     regather by any d is then an indexed read, NEG outside the band.  The
-//     consensus codes come 32 rows at a time, one a lane, and each row's by
-//     one shuffle.  The left closure is a 5-step warp max-scan of each
-//     lane's max of e + 4i, then a running max over the lane's 8 cells.
-//     Each lane packs its 8 moves into 16 bits; the even lane of a pair
-//     writes the pair's word, so a fragment's row (64 bytes) goes out in one
-//     coalesced store.  Rows past the consensus are written as constants
-//     without a DP.
-//   * K10.  One warp a fragment, four a block.  The warp writes the four
-//     primitive rows as "no vote" (coalesced), packs the fragment's bases
-//     and weights (base | weight << 2, as raven_tpu packs them) into shared
-//     memory, finds the best end row by a strided read and a warp argmax
-//     (the first maximal row), then stages 32 move rows (2 KB) and their
-//     band starts into shared memory ahead of the walker, lane 0 walks them
-//     from shared memory and writes its votes over the "no vote" entries,
-//     and the warp stages the next 32 rows when the walker leaves them.
+// What held the first versions back (a warp a fragment each; NVIDIA H100
+// 80GB HBM3 at 700 W: K9 0.63-0.69 ms, ~5% of its bound; K10 0.21-0.26 ms,
+// ~6%).  K9 held 8 band lanes a lane and ran, each row, a band-start
+// division, a 5-step __shfl_up_sync scan for the closure, two __syncwarps
+// around a shared-memory round trip of the whole row (store, then a
+// regather of 9 words at the step d), a shared-memory read of the fragment
+// code a cell and the j == 0 and j > qlen tests in every cell: cuobjdump
+// counted 409 SASS instructions in its row loop, 51 a cell.  K10 walked on
+// one lane while 31 waited, staged its move rows synchronously on the
+// walk's chain (each stage a DRAM round trip: K9 has just written 84 MB of
+// moves, past the 50 MB L2), read the end scores one a lane at a 4B-byte
+// stride, and wrote every primitive twice.
+//
+// Design (the engine's band of BW = 256):
+//   * K9, the layout.  16 lanes of a warp take a fragment, two fragments a
+//     warp, four warps a block; lane l holds band lanes 16l .. 16l + 15 of
+//     the previous row in registers.  The warp runs its two fragments in
+//     step, to the later one's last row (the other's rows past its own end
+//     are computed and not stored), so every shuffle and vote names the
+//     whole warp: masks of one half cost a divergence check at each.
+//     One fragment a warp at 8 band lanes a lane, with the same closure,
+//     was slower at the engine's chunk (PERF.md holds both times).
+//   * K9, the band start and the consensus code.  Every 16 rows lane l
+//     computes row r + l's band start (the division once) and loads its
+//     consensus code a batch ahead; each row takes both by a shuffle each.
+//     The band starts of all T rows, the frozen ones past the consensus
+//     included, are written before the DP.
+//   * K9, the regather by the step d, the one thing K3's band (always d =
+//     1) never had.  The warp picks one source for its row from the
+//     largest and smallest step of its active fragments (two warp
+//     reductions): both d == 1 (most rows of a full-span fragment), the
+//     registers as they are and the next lane's first by a shuffle; both
+//     d == 0 (the rows before the band leaves column 0), the
+//     registers one lane down and the previous lane's last; otherwise the
+//     previous row gathered into pd[0 .. 16]: for steps of 0 to 2 by
+//     selects among the registers and three shuffles, for any other step
+//     (a steep span steps by 3 to 255, a span of one row leaps by 256 or
+//     more) through shared memory, the row stored one padding word in 16
+//     so that the lanes' strided reads hit distinct banks, with a NEG word
+//     past the band's end.  The cell loop is instantiated for each source,
+//     so the common rows move no register.
+//   * K9, the cells.  The fragment's codes are packed 2 bits a column in
+//     shared memory, with a second word array marking the columns whose
+//     code is a base (0-3); a lane takes its 16 columns as one funnel shift
+//     of two words and matches them all at once by XOR against the
+//     replicated consensus code (a consensus code outside 0-3 matches only
+//     an equal fragment code, read from the fragment itself).  e is one
+//     add-max of the up value and the diag, the up move e != diag.  The
+//     closure is K3's (see band.cu): the linear-gap recurrence over each
+//     strip, the carries between lanes iterated to their fixed point with
+//     __any_sync, lanes whose columns are all past qlen + 1 starting from a
+//     high guess.  The j == 0 reset, the domain mask and the end score run
+//     in branches only the lanes concerned take.  Each lane stores its 16
+//     moves as one word through a pointer stepped a row at a time: a
+//     fragment's row, 64 bytes, in one coalesced store.  Values stay int32
+//     (the NEG-fed lanes' moves are outputs).  What bounds K9 in this form
+//     (cuobjdump -sass, which chip_smoke.py prints): its row loop holds 803
+//     instructions for 16 cells, three copies of the cell loop (one a
+//     source of the previous row, a row runs one) and the gather among
+//     them, 424 of them on the integer ALU pipe, which takes a warp
+//     instruction every other cycle; with two fragments a warp the bank
+//     chunk leaves about two warps a scheduler to hide the closure's
+//     dependent chains.
+//   * K10.  8 lanes of a warp take a fragment, four a warp, 16 a block.
+//     The best row comes from the block's 16 fragments read together, 64
+//     contiguous bytes an end-score row, sixteen rows in flight a thread.
+//     The walk is scalar and the same in each of the 8 lanes, one move a
+//     step without branches but for a block's store, so the warp's four
+//     walks step together; on the step's chain are only the move word's
+//     shared-memory load and a few integer operations (the next row's band
+//     start and the vote's base and weight are read beside it).  Nothing on
+//     the walk touches device memory: the four walks of a warp share its
+//     load scoreboard and cp.async counter, so any load or wait of one
+//     walk stalls the others.  The fragment's move rows with their band
+//     starts, and its codes and weights, are staged 64 rows (64 columns) at
+//     a time by cp.async into shared memory, double-buffered, slot m & 127;
+//     every 32 steps the warp stages together, for each walk that has
+//     entered its lowest staged chunk, the chunk below, and waits for the
+//     stages of the point before: a walk takes at least 64 steps to cross a
+//     chunk, so a stage has landed a point before its walk gets there.
+//     Each lane keeps one row of the block of 8 rows its walk is in, as the
+//     primitives it will store, and stores them when the walk leaves the
+//     block: every primitive is written once (the rows above the walk
+//     first, the rows below where it ended last).
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // (see raven_tpu_torch/csrc/__init__.py); each launcher returns the CUDA
@@ -98,24 +162,41 @@ constexpr int kMismatch = -5;
 constexpr int kGap = -4;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int BW = 256;           // band lanes
-constexpr int kCells = BW / 32;   // K9: band lanes a lane holds
-static_assert(kCells == 8, "K9 packs a lane's moves into 16 bits");
 constexpr int kWords = BW / 16;   // move words a row
-constexpr int kWarps = 4;         // warps a block, both kernels
-constexpr int kStage = 32;        // K10: move rows a stage holds
 constexpr int kMaxQ = 8192;       // the longest padded fragment taken
+// the closure's carry into lane 0: never wins, and never wraps when GAP is
+// added a band's width of times
+constexpr int kNone = -(1 << 30);
+// a lane whose columns are all past qlen + 1 holds values within 8 of NEG:
+// a carry above kHigh makes every cell left up to the band's end
+constexpr int kHigh = kNeg + 3 - kGap * BW;
+constexpr int kGuess = 0;         // the high guess (any value above kHigh)
 
-// shared-memory word of logical index s: one padding word every 8, so that
-// lanes reading 8 consecutive words each land on distinct banks
-__host__ __device__ constexpr int pad(int s) { return s + (s >> 3); }
+constexpr int kFwdGroup = 16;              // K9: lanes of the warp a fragment takes
+constexpr int C = BW / kFwdGroup;          // K9: band lanes a lane holds, one move word
+constexpr int kFwdWarps = 4;               // K9: warps a block
+constexpr int kFwdFrags = kFwdWarps * 32 / kFwdGroup;
+
+constexpr int kChunk = 64;                 // K10: move rows, and fragment columns, a stage holds
+constexpr int kChunkBytes = kChunk * kWords * 4;
+constexpr int kStride = kChunk / 2;        // K10: walk steps between two staging points
+constexpr int kGroup = 8;                  // K10: lanes of the warp a fragment takes
+constexpr int kFragsPerWarp = 32 / kGroup;
+constexpr int kWalkWarps = 4;              // K10: warps a block
+constexpr int kWalkFrags = kWalkWarps * kFragsPerWarp;
+// K10's shared memory a fragment, two stages of each: move rows, their band
+// starts, the fragment's codes and its weights
+constexpr int kWalkBytes = 2 * kChunkBytes + 3 * 2 * kChunk * 4;
+
 __host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
-
-// words of shared memory a warp uses
+// K9's packed fragment: words of 16 columns, column j at bits 2 (j % 16) of
+// word j / 16, and one more word for the funnel shift at the band's end
+__host__ __device__ constexpr int code_words(int Q) { return Q / 16 + 2; }
+// K9's regather row: band lane s at rpad(s), one padding word every C
+__host__ __device__ constexpr int rpad(int s) { return s + s / C; }
+// words of shared memory a K9 fragment uses
 __host__ __device__ constexpr int forward_words(int Q) {
-  return round4(pad(Q) + 1) + round4(pad(BW - 1) + 1);
-}
-__host__ __device__ constexpr int walk_words(int Q) {
-  return round4(Q) + kStage * kWords + kStage;
+  return round4(2 * code_words(Q)) + round4(rpad(BW) + 1);
 }
 
 __device__ __forceinline__ int band_start(int r, int tl1, int r0, int span, int q, int hi) {
@@ -126,228 +207,566 @@ __device__ __forceinline__ int band_start(int r, int tl1, int r0, int span, int 
   return min(max(c - BW / 2, 0), hi);
 }
 
-__global__ void __launch_bounds__(32 * kWarps)
+// bit i of a 16-bit x to bit 2i
+__device__ __forceinline__ uint32_t spread2(uint32_t x) {
+  x = (x | (x << 8)) & 0x00FF00FFu;
+  x = (x | (x << 4)) & 0x0F0F0F0Fu;
+  x = (x | (x << 2)) & 0x33333333u;
+  return (x | (x << 1)) & 0x55555555u;
+}
+
+// v[k] for a k known only at run time, as a tree of selects on k's bits
+// (indexing the registers would send the array to local memory)
+template <int W>
+__device__ __forceinline__ int pick_level(int (&t)[C], int k) {
+  const bool upper = (k & W) != 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) t[i] = upper ? t[i + W] : t[i];
+  if constexpr (W > 1) {
+    return pick_level<W / 2>(t, k);
+  } else {
+    return t[0];
+  }
+}
+__device__ __forceinline__ int pick(const int (&v)[C], int k) {
+  int t[C];
+#pragma unroll
+  for (int i = 0; i < C; ++i) t[i] = v[i];
+  return pick_level<C / 2>(t, k);
+}
+
+// Where a K9 lane's cells take the previous row from: band lane C sub + d -
+// 1 + k feeds cell k's diag and the next one its up.  kStep1: d == 1, my
+// own registers and the next lane's first; kStep0: d == 0, my own and the
+// previous lane's last; kGathered: pd[0 .. C], gathered for any d.
+enum Source { kStep1, kStep0, kGathered };
+
+template <int SRC>
+__device__ __forceinline__ int prev_at(const int (&p)[C], const int (&pd)[C + 1], int edge,
+                                       int k) {
+  if constexpr (SRC == kStep1) {
+    return k < C ? p[k] : edge;
+  } else if constexpr (SRC == kStep0) {
+    return k > 0 ? p[k - 1] : edge;
+  } else {
+    return pd[k];
+  }
+}
+
+// e[k] = max(diag, up) of my cells, diag = the previous row at k + its
+// score (bit 2k of mb: a match), up = the previous row at k + 1 + GAP;
+// returns the cells whose move is up (bit k)
+template <int SRC>
+__device__ __forceinline__ uint32_t row_cells(const int (&p)[C], const int (&pd)[C + 1],
+                                              int edge, uint32_t mb, int (&e)[C]) {
+  uint32_t up_bits = 0;
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int dg = prev_at<SRC>(p, pd, edge, k) + (((mb >> (2 * k)) & 1u) ? kMatch : kMismatch);
+    e[k] = __viaddmax_s32(prev_at<SRC>(p, pd, edge, k + 1), kGap, dg);
+    up_bits |= static_cast<uint32_t>(e[k] != dg) << k;
+  }
+  return up_bits;
+}
+
+__global__ void __launch_bounds__(32 * kFwdWarps)
 nw_moves_banded_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict__ t_lens,
                        const int32_t* __restrict__ frags, const int32_t* __restrict__ q_lens,
                        const int32_t* __restrict__ r0s, const int32_t* __restrict__ r1s,
                        uint32_t* __restrict__ moves, int32_t* __restrict__ offs,
                        int32_t* __restrict__ ends, int32_t* __restrict__ row0, long long B,
                        int T, int Q) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) uint32_t smem_fwd[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long b = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (b >= B) return;  // the whole warp
-  int* s_f = smem + warp * forward_words(Q);  // fragment code of column j at pad(j)
-  int* s_p = s_f + round4(pad(Q) + 1);        // previous row, band lane i at pad(i)
+  const int g = lane / kFwdGroup, sub = lane % kFwdGroup;
+  const int fl = warp * (32 / kFwdGroup) + g;  // my fragment in the block
+  const long long bw0 = static_cast<long long>(blockIdx.x) * kFwdFrags + warp * (32 / kFwdGroup);
+  if (bw0 >= B) return;  // the whole warp
+  // a fragment past B runs beside its warp's other on the last one's
+  // inputs, and stores nothing
+  const bool valid = bw0 + g < B;
+  const long long b = valid ? bw0 + g : B - 1;
+  const int PW = code_words(Q);
+  uint32_t* s_code = smem_fwd + fl * forward_words(Q);  // 2-bit codes
+  uint32_t* s_base = s_code + PW;                        // 1 at a base (0-3)
+  int* s_row = reinterpret_cast<int*>(s_code + round4(2 * PW));  // the regather row
+
   const int32_t* f_row = frags + b * Q;
-  for (int j = lane; j <= Q; j += 32) s_f[pad(j)] = j == 0 ? -1 : f_row[j - 1];
+  for (int w = sub; w < PW; w += kFwdGroup) {
+    uint32_t code = 0, base = 0;
+#pragma unroll 4
+    for (int k = 0; k < 16; ++k) {
+      const int j = 16 * w + k;  // column j reads fragment code j - 1
+      if (j >= 1 && j <= Q) {
+        const int f = f_row[j - 1];
+        if (f >= 0 && f <= 3) {
+          code |= static_cast<uint32_t>(f) << (2 * k);
+          base |= 1u << (2 * k);
+        }
+      }
+    }
+    s_code[w] = code;
+    s_base[w] = base;
+  }
+  if (sub == 0) s_row[rpad(BW)] = kNeg;  // past the band's end
 
   const int tl = t_lens[b], ql = q_lens[b], r0 = r0s[b];
   const int span = max(r1s[b] - r0, 1);
   const int q = min(ql, Q);
   const int hi = max(Q + 1 - BW, 0);
   const int tl1 = max(tl, 1);
-  const int i0 = lane * kCells;  // my first band lane
-  int off_prev = band_start(-1, tl1, r0, span, q, hi);
-#pragma unroll
-  for (int c = 0; c < kCells; ++c) {
-    const int j = off_prev + i0 + c;
-    s_p[pad(i0 + c)] = j <= ql ? j * kGap : kNeg;
+  const int rows = valid ? min(T, max(tl, 0)) : 0;  // my DP rows; the rest are constants
+  const int rows_w = __reduce_max_sync(kFull, static_cast<unsigned>(rows));  // the warp's
+  // every row's band start: past the consensus, the last DP row's
+  for (int r = sub; valid && r < T; r += kFwdGroup) {
+    offs[static_cast<size_t>(r) * B + b] = band_start(tl > 0 ? r : -1, tl1, r0, span, q, hi);
   }
-  if (lane == 0) row0[b] = ql <= Q ? ql * kGap : kNeg;
-  __syncwarp();
+  if (valid && sub == 0) row0[b] = ql <= Q ? ql * kGap : kNeg;
+
+  int off_prev = band_start(-1, tl1, r0, span, q, hi);
+  int prev[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int j = off_prev + C * sub + k;
+    prev[k] = j <= ql ? j * kGap : kNeg;
+  }
+  __syncwarp();  // the packed fragments are whole
 
   const int32_t* c_row = cw + b * T;
   const size_t row_words = static_cast<size_t>(B) * kWords;
-  uint32_t* mv_out = moves + b * kWords + (lane >> 1);
-  int tc_buf = 0;
-  int r = 0;
-  for (; r < T && r < tl; ++r) {
-    if ((r & 31) == 0) tc_buf = r + lane < T ? c_row[r + lane] : -1;
-    const int tch = __shfl_sync(kFull, tc_buf, r & 31);
-    const int off = band_start(r, tl1, r0, span, q, hi);
-    const int base = off - off_prev + i0 - 1;  // previous-row lane of my first diag
-    int pv[kCells + 1];
-#pragma unroll
-    for (int k = 0; k <= kCells; ++k) {
-      const int s = base + k;
-      pv[k] = (s >= 0 && s < BW) ? s_p[pad(s)] : kNeg;
+  uint32_t* mv_out = moves + b * kWords + sub;
+  int32_t* end_out = ends + b;
+  // the consensus codes, a batch of kFwdGroup rows ahead; 0 (any base) on
+  // the rows I run only beside my warp's other fragment
+  int tc_next = sub < rows ? c_row[sub] : 0;
+  int tc_batch = 0, off_batch = 0;
+  for (int r = 0; r < rows_w; ++r) {
+    const int rs = r % kFwdGroup;
+    if (rs == 0) {
+      tc_batch = tc_next;
+      const int rn = r + kFwdGroup + sub;
+      tc_next = rn < rows ? c_row[rn] : 0;
+      off_batch = band_start(r + sub, tl1, r0, span, q, hi);
     }
-    __syncwarp();  // every read of the previous row is done before it is overwritten
-    const int jb = off + i0;  // column of my first band lane
-    int e[kCells];
-    int mv[kCells];
-    int vmax = INT_MIN;
-#pragma unroll
-    for (int c = 0; c < kCells; ++c) {
-      const int dg = pv[c] + (s_f[pad(jb + c)] == tch ? kMatch : kMismatch);
-      const int up = pv[c + 1] + kGap;
-      const bool take_diag = dg >= up;
-      e[c] = take_diag ? dg : up;
-      mv[c] = take_diag ? 0 : 1;
-      if (jb + c == 0) {  // the free consensus prefix
-        e[c] = 0;
-        mv[c] = 1;
-      }
-      vmax = max(vmax, e[c] - kGap * (i0 + c));
-    }
-    // the left closure: an exclusive max-scan of e - GAP i over the lanes
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, vmax, o);
-      if (lane >= o) vmax = max(vmax, y);
-    }
-    int run = __shfl_up_sync(kFull, vmax, 1);
-    if (lane == 0) run = INT_MIN;
-    uint32_t bits = 0;
-#pragma unroll
-    for (int c = 0; c < kCells; ++c) {
-      run = max(run, e[c] - kGap * (i0 + c));
-      const int closed = run + kGap * (i0 + c);
-      int cur = e[c];
-      if (closed > cur) {
-        cur = closed;
-        mv[c] = 2;
-      }
-      if (jb + c > ql) cur = kNeg;
-      s_p[pad(i0 + c)] = cur;
-      bits |= static_cast<uint32_t>(mv[c]) << (2 * c);
-    }
-    const uint32_t hi_bits = __shfl_down_sync(kFull, bits, 1);
-    if ((lane & 1) == 0) mv_out[r * row_words] = bits | (hi_bits << 16);
-    __syncwarp();  // the row is whole before its end score is read
-    if (lane == 0) {
-      const int iq = ql - off;
-      ends[r * B + b] = (iq >= 0 && iq < BW) ? s_p[pad(iq)] : kNeg;
-      offs[r * B + b] = off;
-    }
+    const int tch = __shfl_sync(kFull, tc_batch, rs, kFwdGroup);
+    const int off = __shfl_sync(kFull, off_batch, rs, kFwdGroup);
+    const bool active = r < rows;
+    const int d = off - off_prev;
     off_prev = off;
+    // the step's source for the whole warp, from the largest and smallest
+    // step of its active fragments
+    const unsigned du = static_cast<unsigned>(d);
+    const unsigned dmax = __reduce_max_sync(kFull, active ? du : 0u);
+    const unsigned dmin = __reduce_min_sync(kFull, active ? du : ~0u);
+
+    // my columns' matches against the consensus code, bit 2k for cell k
+    const int jb = off + C * sub;  // column of my first band lane
+    const int w0 = jb >> 4, sh = 2 * (jb & 15);
+    uint32_t mb;
+    if (static_cast<unsigned>(tch) <= 3u) {
+      const uint32_t code = __funnelshift_r(s_code[w0], s_code[w0 + 1], sh);
+      const uint32_t x = code ^ (static_cast<uint32_t>(tch) * 0x55555555u);
+      mb = ~(x | (x >> 1)) & __funnelshift_r(s_base[w0], s_base[w0 + 1], sh);
+    } else {  // a code outside 0-3 matches only an equal fragment code
+      mb = 0;
+      for (int k = 0; k < C; ++k) {
+        const int j = jb + k;
+        mb |= static_cast<uint32_t>((j >= 1 ? f_row[j - 1] : -1) == tch) << (2 * k);
+      }
+    }
+
+    int e[C];
+    int pd[C + 1];
+    uint32_t up_bits;
+    if (dmax == 1 && dmin == 1) {
+      const int x = __shfl_down_sync(kFull, prev[0], 1, kFwdGroup);
+      up_bits = row_cells<kStep1>(prev, pd, sub == kFwdGroup - 1 ? kNeg : x, mb, e);
+    } else if (dmax == 0) {
+      const int x = __shfl_up_sync(kFull, prev[C - 1], 1, kFwdGroup);
+      up_bits = row_cells<kStep0>(prev, pd, sub == 0 ? kNeg : x, mb, e);
+    } else {
+      if (dmax <= 2) {  // steps of 0 to 2 across the warp: selects
+        const int xl = __shfl_up_sync(kFull, prev[C - 1], 1, kFwdGroup);
+        const int x0 = __shfl_down_sync(kFull, prev[0], 1, kFwdGroup);
+        const int x1 = __shfl_down_sync(kFull, prev[1], 1, kFwdGroup);
+        const bool last = sub == kFwdGroup - 1;
+        const int lo = sub == 0 ? kNeg : xl, r0v = last ? kNeg : x0, r1v = last ? kNeg : x1;
+#pragma unroll
+        for (int k = 0; k <= C; ++k) {
+          const int a = k == 0 ? lo : prev[k - 1];
+          const int m = k < C ? prev[k] : r0v;
+          const int z = k + 1 < C ? prev[k + 1] : (k + 1 == C ? r0v : r1v);
+          pd[k] = d == 0 ? a : (d == 1 ? m : z);
+        }
+      } else {  // any step: through shared memory
+        __syncwarp();  // the last regather's reads are done
+#pragma unroll
+        for (int k = 0; k < C; ++k) s_row[rpad(C * sub + k)] = prev[k];
+        __syncwarp();
+        const unsigned at = static_cast<unsigned>(C * sub + d - 1);
+#pragma unroll
+        for (int k = 0; k <= C; ++k) {
+          pd[k] = s_row[rpad(min(at + k, static_cast<unsigned>(BW)))];
+        }
+      }
+      up_bits = row_cells<kGathered>(prev, pd, 0, mb, e);
+    }
+    // the free consensus prefix: column j == 0 restarts at 0 with move up,
+    // before the closure
+    if (jb == 0) {
+      e[0] = 0;
+      up_bits |= 1u;
+    }
+    // the left closure over my strip from no carry: its last value
+    int run = kNone;
+#pragma unroll
+    for (int k = 0; k < C; ++k) run = __viaddmax_s32(run, kGap, e[k]);
+    // the carries between lanes, to their fixed point
+    const bool past = jb >= ql + 2;       // all my columns past qlen + 1
+    const bool all_past = off >= ql + 2;  // the first lane's, so the row's
+    int last = past && !all_past ? kGuess : run;
+    int carry;
+    while (true) {
+      int c = __shfl_up_sync(kFull, last, 1, kFwdGroup);
+      if (sub == 0) c = kNone;
+      int nl = __viaddmax_s32(c, C * kGap, run);
+      if (past && c > kHigh) nl = kGuess;
+      const bool changed = nl != last;
+      carry = c;
+      last = nl;
+      if (!__any_sync(kFull, changed)) break;
+    }
+    // the closure again from the carry; bit k: cell k's move is left
+    int dv[C];
+    uint32_t left_bits = 0;
+    run = carry;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      run = __viaddmax_s32(run, kGap, e[k]);
+      dv[k] = run;
+      left_bits |= static_cast<uint32_t>(run != e[k]) << k;
+    }
+    const uint32_t bits = spread2(up_bits & ~left_bits) | (spread2(left_bits) << 1);
+    if (active) *mv_out = bits;
+    mv_out += row_words;
+    // lanes with j > qlen hold NEG
+    if (jb + C - 1 <= ql) {
+#pragma unroll
+      for (int k = 0; k < C; ++k) prev[k] = dv[k];
+    } else {
+      const int top = ql - jb;  // my last cell within the fragment (< C - 1)
+      const uint32_t in = top >= 0 ? (2u << top) - 1u : 0u;
+#pragma unroll
+      for (int k = 0; k < C; ++k) prev[k] = (in >> k) & 1u ? dv[k] : kNeg;
+    }
+    // the row's end score: from the lane of column qlen, or NEG from the
+    // first lane when that column is outside the band
+    const int iq = ql - off;
+    if (static_cast<unsigned>(iq) < static_cast<unsigned>(BW)) {
+      if (active && sub == iq / C) end_out[static_cast<size_t>(r) * B] = pick(prev, iq % C);
+    } else if (active && sub == 0) {
+      end_out[static_cast<size_t>(r) * B] = kNeg;
+    }
   }
+  if (!valid) return;
   // rows past the consensus: the previous row kept, move 3 everywhere
-  for (; r < T; ++r) {
-    if (lane < kWords) moves[r * row_words + b * kWords + lane] = 0xFFFFFFFFu;
-    if (lane == 0) {
-      ends[r * B + b] = kNeg;
-      offs[r * B + b] = off_prev;
+  for (int k = sub; k < (T - rows) * kWords; k += kFwdGroup) {
+    moves[(rows + k / kWords) * row_words + b * kWords + k % kWords] = 0xFFFFFFFFu;
+  }
+  for (int r = rows + sub; r < T; r += kFwdGroup) end_out[static_cast<size_t>(r) * B] = kNeg;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t lds_u32(unsigned addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// Stage chunk c of a fragment's moves and band starts, rows 64c .. 64c + 63
+// (those < T), into buffer c & 1: row m's move words at slot m & 127 of the
+// moves, its band start at slot m & 127 of the band starts.  The warp's 32
+// lanes copy.
+__device__ __forceinline__ void stage_moves(uint8_t* s_frag, const uint32_t* mv_frag,
+                                            const int32_t* off_frag, size_t row_words,
+                                            long long B, int c, int T, int lane) {
+  uint8_t* dst = s_frag + (c & 1) * kChunkBytes;
+#pragma unroll
+  for (int k = lane; k < kChunk * 4; k += 32) {
+    const int slot = k >> 2, part = k & 3;
+    const int m = kChunk * c + slot;
+    if (m < T) cp_async16(dst + slot * 64 + part * 16, mv_frag + m * row_words + part * 4);
+  }
+  int* od = reinterpret_cast<int*>(s_frag + 2 * kChunkBytes) + (c & 1) * kChunk;
+#pragma unroll
+  for (int k = lane; k < kChunk; k += 32) {
+    const int m = kChunk * c + k;
+    if (m < T) cp_async4(od + k, off_frag + m * B);
+  }
+}
+
+// Stage chunk k of a fragment's codes and weights, columns 64k .. 64k + 63
+// (those < Q), into buffer k & 1: column c's at slot c & 127 of each.  The
+// warp's 32 lanes copy.
+__device__ __forceinline__ void stage_cols(uint8_t* s_frag, const int32_t* f_row,
+                                           const int32_t* w_row, int k, int Q, int lane) {
+  int* dst = reinterpret_cast<int*>(s_frag + 2 * kChunkBytes) + 2 * kChunk + (k & 1) * kChunk;
+#pragma unroll
+  for (int c = lane; c < kChunk; c += 32) {
+    const int col = kChunk * k + c;
+    if (col < Q) {
+      cp_async4(dst + c, f_row + col);
+      cp_async4(dst + 2 * kChunk + c, w_row + col);
     }
   }
 }
 
-__global__ void __launch_bounds__(32 * kWarps)
+__global__ void __launch_bounds__(32 * kWalkWarps)
 traceback_banded_kernel(const uint32_t* __restrict__ moves, const int32_t* __restrict__ offs,
                         const int32_t* __restrict__ ends, const int32_t* __restrict__ row0,
                         const int32_t* __restrict__ q_lens, const int32_t* __restrict__ frags,
                         const int32_t* __restrict__ wts, int32_t* __restrict__ col_sym,
                         int32_t* __restrict__ col_w, int32_t* __restrict__ ins_b,
                         int32_t* __restrict__ ins_w, long long B, int T, int Q) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) uint8_t smem_walk[];
+  // [warp][fragment of the block]
+  __shared__ int s_best[kWalkWarps][kWalkFrags], s_best_r[kWalkWarps][kWalkFrags];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long b = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (b >= B) return;  // the whole warp
-  int* s_pk = smem + warp * walk_words(Q);  // base | weight << 2 of fragment column q
-  uint32_t* s_mv = reinterpret_cast<uint32_t*>(s_pk + round4(Q));  // staged move rows
-  int* s_off = reinterpret_cast<int*>(s_mv + kStage * kWords);       // their band starts
+  const int g = lane / kGroup, sub = lane % kGroup;
+  const long long b0 = static_cast<long long>(blockIdx.x) * kWalkFrags;
+  const int fl = warp * kFragsPerWarp + g;  // my fragment in the block
+  // a fragment past B walks nothing and stores nothing, beside its warp's
+  const bool valid = b0 + fl < B;
+  const long long b = valid ? b0 + fl : B - 1;
 
+  // the best end score and the first row holding it, for the block's 16
+  // fragments at once: thread t reads fragment t % 16 of rows t / 16, +8,
+  // .., sixteen rows in flight
+  {
+    constexpr int kStep = 32 * kWalkWarps / kWalkFrags;
+    const int f = threadIdx.x % kWalkFrags;
+    int best = INT_MIN, best_r = 0;
+    if (b0 + f < B) {
+      for (int t = threadIdx.x / kWalkFrags; t < T; t += 16 * kStep) {
+        int x[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          const int tu = t + u * kStep;
+          x[u] = tu < T ? ends[static_cast<size_t>(tu) * B + b0 + f] : INT_MIN;
+        }
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          if (x[u] > best) {
+            best = x[u];
+            best_r = t + u * kStep;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int o = kWalkFrags; o < 32; o <<= 1) {
+      const int ov = __shfl_xor_sync(kFull, best, o);
+      const int orr = __shfl_xor_sync(kFull, best_r, o);
+      if (ov > best || (ov == best && orr < best_r)) {
+        best = ov;
+        best_r = orr;
+      }
+    }
+    if (lane < kWalkFrags) {
+      s_best[warp][lane] = best;
+      s_best_r[warp][lane] = best_r;
+    }
+  }
+  __syncthreads();
+  int best = s_best[0][fl], best_r = s_best_r[0][fl];
+#pragma unroll
+  for (int w = 1; w < kWalkWarps; ++w) {
+    const int ov = s_best[w][fl], orr = s_best_r[w][fl];
+    if (ov > best || (ov == best && orr < best_r)) {
+      best = ov;
+      best_r = orr;
+    }
+  }
+  const int t0 = row0[b] >= best ? 0 : best_r + 1;
   int32_t* cs = col_sym + b * T;
   int32_t* cwt = col_w + b * T;
   int32_t* ib = ins_b + b * (T + 1);
   int32_t* iw = ins_w + b * (T + 1);
-  for (int t = lane; t < T; t += 32) {
-    cs[t] = 5;
-    cwt[t] = 0;
+
+  // lane sub keeps row m = 8k + sub of the walker's block k (walker rows t
+  // = m + 1) and writes col_sym[m], col_w[m], ins_b[m + 1] and ins_w[m +
+  // 1].  The rows above the walker's first block first.
+  const int kt = t0 >= 1 ? (t0 - 1) / kGroup : -1;
+  for (int m = kGroup * (kt + 1) + sub; valid && m < T; m += kGroup) {
+    cs[m] = 5;
+    cwt[m] = 0;
+    ib[m + 1] = -1;
+    iw[m + 1] = 0;
   }
-  for (int t = lane; t <= T; t += 32) {
-    ib[t] = -1;
-    iw[t] = 0;
-  }
-  for (int k = lane; k < Q; k += 32) {
-    const int f = frags[b * Q + k];
-    s_pk[k] = min(max(f, 0), 3) | (wts[b * Q + k] << 2);
-  }
-  // the best end row: the first row holding the maximum
-  int best = INT_MIN, best_r = 0;
-  for (int r = lane; r < T; r += 32) {
-    const int v = ends[r * B + b];
-    if (v > best) {
-      best = v;
-      best_r = r;
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const int ov = __shfl_xor_sync(kFull, best, o);
-    const int orow = __shfl_xor_sync(kFull, best_r, o);
-    if (ov > best || (ov == best && orow < best_r)) {
-      best = ov;
-      best_r = orow;
-    }
-  }
-  int t = row0[b] >= best ? 0 : best_r + 1;
-  int j = q_lens[b];
-  int prev_mv = 3;
+
+  uint8_t* s_frag = smem_walk + static_cast<size_t>(fl) * kWalkBytes;
   const size_t row_words = static_cast<size_t>(B) * kWords;
-  while (true) {
-    // stage the move rows top - kStage + 1 .. top below the walker
-    const int top = max(t - 1, 0);
-    const int lo = max(top - kStage + 1, 0);
-    for (int k = lane; k < kStage * kWords; k += 32) {
-      const int row = lo + k / kWords;
-      if (row <= top) s_mv[k] = moves[row * row_words + b * kWords + k % kWords];
+  int t = t0, j = q_lens[b], prev_mv = 3;
+  const int qm1 = Q - 1;
+  // the move row and the fragment column of the walker, and the lowest
+  // chunks of each staged so far
+  const int ti0 = max(t0 - 1, 0);
+  const int col0 = min(max(j - 1, 0), qm1);
+  int mv_low = ti0 / kChunk, col_low = col0 / kChunk;
+  // The warp stages together, each fragment's chunks in turn: the chunks
+  // `mv` and `col` that my group's lane 0 asks for (-1: none).
+  auto stage = [&](int mv, int col) {
+#pragma unroll 1
+    for (int gg = 0; gg < kFragsPerWarp; ++gg) {
+      const int sm = __shfl_sync(kFull, mv, gg * kGroup);
+      const int sc = __shfl_sync(kFull, col, gg * kGroup);
+      const int fg = warp * kFragsPerWarp + gg;
+      const long long bg = b0 + fg;
+      uint8_t* sf = smem_walk + static_cast<size_t>(fg) * kWalkBytes;
+      if (sm >= 0) stage_moves(sf, moves + bg * kWords, offs + bg, row_words, B, sm, T, lane);
+      if (sc >= 0) stage_cols(sf, frags + bg * Q, wts + bg * Q, sc, Q, lane);
     }
-    if (lo + lane <= top) s_off[lane] = offs[(lo + lane) * B + b];
-    __syncwarp();
-    int done = 0;
-    if (lane == 0) {
-      while (true) {
-        if (j <= 0) {
-          done = 1;
-          break;
-        }
-        const int ti = max(t - 1, 0);
-        if (ti < lo) break;  // past the staged rows
-        const int i = j - s_off[ti - lo];
-        // outside the band: a stall on the top row, else a stop; both end
-        // the walk without a vote, as does a row past the consensus (3)
-        if (i < 0 || i >= BW) {
-          done = 1;
-          break;
-        }
-        const int mv = t == 0 ? 2 : (s_mv[(ti - lo) * kWords + (i >> 4)] >> (2 * (i & 15))) & 3;
-        if (mv == 3) {
-          done = 1;
-          break;
-        }
-        const int p = s_pk[min(max(j - 1, 0), Q - 1)];
-        if (mv <= 1) {
-          cs[t - 1] = mv == 0 ? (p & 3) : 4;
-          cwt[t - 1] = p >> 2;
-          --t;
-        } else if (prev_mv != 2) {
-          ib[t] = p & 3;
-          iw[t] = p >> 2;
-        }
-        if (mv != 1) --j;
-        prev_mv = mv;
-      }
+  };
+  stage(valid ? mv_low : -1, valid ? col_low : -1);
+  --mv_low;
+  --col_low;
+  stage(valid ? mv_low : -1, valid ? col_low : -1);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncwarp();
+  // shared-space addresses (any row m or column c, the slots of those not
+  // staged included): row m's move words at mv_sh + (m & 127) * 64, its
+  // band start at off_sh + (m & 127) * 4, column c's code at col_sh + (c &
+  // 127) * 4 and its weight 512 bytes on
+  const unsigned mv_sh = static_cast<unsigned>(__cvta_generic_to_shared(s_frag));
+  const unsigned off_sh = mv_sh + 2 * kChunkBytes;
+  const unsigned col_sh = off_sh + 2 * kChunk * 4;
+  constexpr int kSlots = 2 * kChunk - 1;
+  auto off_at = [&](int m) { return static_cast<int>(lds_u32(off_sh + (m & kSlots) * 4)); };
+  unsigned row = mv_sh + (ti0 & kSlots) * 64;  // the walker's move row
+  int ro = off_at(ti0);                        // and its band start
+
+  bool done = !valid;
+  // this lane's row of the walker's block: its primitives as they will be
+  // stored (no vote: 5, 0, -1, 0); the insertion at junction 0 apart
+  int v_sym = 5, v_w = 0, i_b = -1, i_w = 0, i0_b = -1, i0_w = 0;
+  auto store_block = [&](int k) {
+    const int m = kGroup * k + sub;
+    if (m < T) {
+      cs[m] = v_sym;
+      cwt[m] = v_w;
+      ib[m + 1] = i_b;
+      iw[m + 1] = i_w;
     }
-    done = __shfl_sync(kFull, done, 0);
-    if (done) break;
-    t = __shfl_sync(kFull, t, 0);
-    j = __shfl_sync(kFull, j, 0);
-    prev_mv = __shfl_sync(kFull, prev_mv, 0);
-    __syncwarp();  // the walker is done with the stage before it is refilled
+    v_sym = 5;
+    v_w = 0;
+    i_b = -1;
+    i_w = 0;
+  };
+
+  // one move a step, the same in the group's 8 lanes and without branches
+  // but for a block's store; every kStride steps the warp stages, for each
+  // walker that has entered the lowest chunk staged, the chunk below, waits
+  // for the stages of the point before, and goes on while a walk goes on (a
+  // walker takes at least kChunk = 2 kStride steps to cross a chunk, so the
+  // point that waits for a stage comes before the walker reaches it)
+  bool going = __any_sync(kFull, !done);
+  while (going) {
+#pragma unroll 1
+    for (int step = 0; step < kStride; ++step) {
+      const int i = j - ro;
+      const unsigned ic = min(static_cast<unsigned>(i), static_cast<unsigned>(BW - 1));
+      const uint32_t word = lds_u32(row + 4 * (ic >> 4));
+      const int col = min(max(j - 1, 0), qm1);
+      const unsigned at = col_sh + (col & kSlots) * 4;
+      const int pk = min(max(static_cast<int>(lds_u32(at)), 0), 3) |
+                     (static_cast<int>(lds_u32(at + 2 * kChunk * 4)) << 2);
+      const int tn = t - 1, tin = t - 2;  // t and its move row after a move up a row
+      const int ro_in = off_at(tin);
+      // outside the band: a stall on the top row, else a stop; both end the
+      // walk without a vote, as do a row past the consensus (3) and column 0
+      const bool live = !done && j > 0 && static_cast<unsigned>(i) < static_cast<unsigned>(BW);
+      const int mv = t > 0 ? static_cast<int>((word >> (2 * (ic & 15))) & 3u) : 2;
+      const bool go = live && mv != 3;
+      done = !go;
+      const bool up_row = go && mv <= 1;  // diag or up: the walker moves a row up
+      const bool mine = sub == (tn & (kGroup - 1));
+      const bool ins = go && mv == 2 && prev_mv != 2;
+      v_sym = up_row && mine ? (mv == 0 ? pk & 3 : 4) : v_sym;
+      v_w = up_row && mine ? pk >> 2 : v_w;
+      i_b = ins && t > 0 && mine ? pk & 3 : i_b;
+      i_w = ins && t > 0 && mine ? pk >> 2 : i_w;
+      i0_b = ins && t == 0 ? pk & 3 : i0_b;
+      i0_w = ins && t == 0 ? pk >> 2 : i0_w;
+      prev_mv = go ? mv : prev_mv;
+      j -= go && mv != 1;
+      const bool row_up = up_row && tn >= 1;  // at t == 0 the band stays row 1's
+      ro = row_up ? ro_in : ro;
+      row = row_up ? mv_sh + (tin & kSlots) * 64 : row;
+      t = up_row ? tn : t;
+      if (up_row && (tn & (kGroup - 1)) == 0) store_block(tn / kGroup);  // the walker left it
+    }
+    __syncwarp();  // the lanes' reads of the buffers a stage takes are done
+    int ask_mv = -1, ask_col = -1;
+    if (!done && mv_low >= 0 && mv_low == max(t - 1, 0) / kChunk) ask_mv = --mv_low;
+    if (!done && col_low >= 0 && col_low == min(max(j - 1, 0), qm1) / kChunk) ask_col = --col_low;
+    stage(ask_mv, ask_col);
+    cp_async_commit();
+    cp_async_wait_one();  // the stages of the point before have landed
+    __syncwarp();         // and the warp's lanes see them
+    going = __any_sync(kFull, !done);
+  }
+  cp_async_wait_all();  // stages for walks that ended early
+  if (!valid) return;
+  if (t >= 1) {  // the walker's block, then the rows below it
+    const int k = (t - 1) / kGroup;
+    store_block(k);
+    for (int m = sub; m < kGroup * k; m += kGroup) {
+      cs[m] = 5;
+      cwt[m] = 0;
+      ib[m + 1] = -1;
+      iw[m + 1] = 0;
+    }
+  }
+  if (sub == 0) {
+    ib[0] = i0_b;
+    iw[0] = i0_w;
   }
 }
 
 bool supported(int T, int Q) { return T >= 1 && Q >= BW - 1 && Q <= kMaxQ; }
 
 template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, long long bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+int launch_setup(Kernel kernel, long long B, int per_block, long long smem, unsigned* blocks) {
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  // raised on every launch: the limit belongs to the current device
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long n = (B + per_block - 1) / per_block;
+  if (n > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  *blocks = static_cast<unsigned>(n);
+  return 0;
 }
 
 }  // namespace
@@ -364,13 +783,12 @@ int raven_nw_moves_banded_launch(const void* cw, const void* t_lens, const void*
                                  long long B, int T, int Q, void* stream) {
   if (B == 0) return 0;
   if (!supported(T, Q)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = static_cast<long long>(kWarps) * forward_words(Q) * 4;
-  cudaError_t e = set_smem(nw_moves_banded_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long blocks = (B + kWarps - 1) / kWarps;
-  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  nw_moves_banded_kernel<<<static_cast<unsigned int>(blocks), 32 * kWarps,
-                           static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+  const long long smem = static_cast<long long>(kFwdFrags) * forward_words(Q) * 4;
+  unsigned blocks = 0;
+  const int err = launch_setup(nw_moves_banded_kernel, B, kFwdFrags, smem, &blocks);
+  if (err != 0) return err;
+  nw_moves_banded_kernel<<<blocks, 32 * kFwdWarps, static_cast<size_t>(smem),
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(cw), static_cast<const int32_t*>(t_lens),
       static_cast<const int32_t*>(frags), static_cast<const int32_t*>(q_lens),
       static_cast<const int32_t*>(r0), static_cast<const int32_t*>(r1),
@@ -389,13 +807,12 @@ int raven_traceback_banded_launch(const void* moves, const void* offs, const voi
                                   void* ins_w, long long B, int T, int Q, void* stream) {
   if (B == 0) return 0;
   if (!supported(T, Q)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = static_cast<long long>(kWarps) * walk_words(Q) * 4;
-  cudaError_t e = set_smem(traceback_banded_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long blocks = (B + kWarps - 1) / kWarps;
-  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  traceback_banded_kernel<<<static_cast<unsigned int>(blocks), 32 * kWarps,
-                            static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+  const long long smem = static_cast<long long>(kWalkFrags) * kWalkBytes;
+  unsigned blocks = 0;
+  const int err = launch_setup(traceback_banded_kernel, B, kWalkFrags, smem, &blocks);
+  if (err != 0) return err;
+  traceback_banded_kernel<<<blocks, 32 * kWalkWarps, static_cast<size_t>(smem),
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(moves), static_cast<const int32_t*>(offs),
       static_cast<const int32_t*>(ends), static_cast<const int32_t*>(row0),
       static_cast<const int32_t*>(q_lens), static_cast<const int32_t*>(frags),

@@ -19,7 +19,7 @@ import numpy as np
 from raven_tpu_torch.config import OverlapPhaseCfg
 from raven_tpu_torch.graph import overlap_utils as ou
 from raven_tpu_torch.graph.graph import Graph
-from raven_tpu_torch.overlap.device_index import MAX_ENTRIES
+from raven_tpu_torch.overlap.device_index import MAX_TOTAL_ENTRIES
 from raven_tpu_torch.overlap.engine import MinimizerIndex
 from raven_tpu_torch.overlap.types import OVERLAP_DTYPE, overlap_length, overlap_reverse
 from raven_tpu_torch.pile.pile import Piles
@@ -33,14 +33,16 @@ INDEX_BATCH_BYTES = 1 << 32
 def _index_batch_bytes(device) -> int:
     """Effective index-batch budget for an index on `device`: on the CPU
     the reference's 2^32, as raven_tpu keeps it on a CPU backend; on a card
-    clamped to what one device index holds (MAX_ENTRIES entries at ~3 bases
-    each, with ~10% headroom), so a genome beyond it streams as several
-    device-sized batches instead of declining to the host build (raven_tpu
-    clamps to its partitioned index's ceiling, not ported yet)."""
+    raven_tpu's clamp to the partitioned index's ceiling (MAX_TOTAL_ENTRIES
+    entries at ~3 bases each, with ~10% headroom), so that batch
+    boundaries, and with them the overlaps that survive the 32-longest cap
+    on length ties, are raven_tpu's, and every batch stays on the card."""
     if device.type == "cpu":
         return INDEX_BATCH_BYTES
-    cap = int(MAX_ENTRIES * 3 * 0.9)
+    cap = int(MAX_TOTAL_ENTRIES * 3 * 0.9)
     return min(INDEX_BATCH_BYTES, cap)
+
+
 MAP_BATCH_BYTES = 1 << 30  # construct.cc:67
 SECOND_PASS_BATCH_BYTES = 1 << 30  # construct.cc:356
 VALID_REGION_COVERAGE = 4  # construct.cc:134

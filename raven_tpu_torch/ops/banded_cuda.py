@@ -28,7 +28,7 @@ from raven_tpu_torch.ops.consensus_cuda import votes_from_primitives
 
 NEG = -(1 << 20)
 MATCH, MISMATCH, GAP = 3, -5, -4
-KERNEL_BW = 256  # the band width the kernels take: a warp a fragment, 8 band lanes a lane
+KERNEL_BW = 256  # the band width the kernels take: K9 holds 16 band lanes a lane
 KERNEL_MAX_Q = 8192  # the longest padded fragment the kernels' shared memory holds
 LAUNCHES = {"nw_moves_banded": 0, "traceback_banded": 0}
 

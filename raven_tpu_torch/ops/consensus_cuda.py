@@ -229,44 +229,49 @@ def votes_primitives(cw, tlens, frags, qlens, wts):
     raise ValueError(f"no window consensus kernel for device {cw.device}")
 
 
+_ARANGES: dict = {}
+
+
+def _arange(n: int, device) -> torch.Tensor:
+    """torch.arange(n) on `device`, made once per process."""
+    key = (n, str(device))
+    if key not in _ARANGES:
+        _ARANGES[key] = torch.arange(n, device=device)
+    return _ARANGES[key]
+
+
 def votes_from_primitives(col_sym, col_w, ins_b, ins_w, win_idx, cons_runs, T, NWIN):
     """Aggregate per-fragment primitives into the per-window vote tables
     (raven_tpu/ops/pallas_consensus.py::votes_from_primitives) with integer
-    index_add_; entries that carry no vote land in a dump slot past the
-    table.  Returns (base_votes [NWIN, T, 5], ins_votes [NWIN, T+1, 4],
-    cover [NWIN, T]) int32."""
+    index_add_.  An entry that carries no vote adds 0 at its own (clamped)
+    cell: one dump slot for all of them would put about a million atomic
+    adds on one address a chunk.  The call is a short run of small ops whose
+    launches outlast their device work on a card, so it keeps them few: the
+    index arithmetic in adds with alpha, one zero fill for the three tables,
+    the junction map read by take.  Returns (base_votes [NWIN, T, 5],
+    ins_votes [NWIN, T+1, 4], cover [NWIN, T]) int32."""
     dev = col_sym.device
     w = win_idx.to(torch.int64)[:, None]
-    t_idx = torch.arange(T, device=dev)[None, :]
+    n_base, n_cell = NWIN * T * 5, NWIN * T
+    tables = torch.zeros(n_base + n_cell + NWIN * (T + 1) * 4, dtype=torch.int32, device=dev)
+    base = tables[:n_base]
+    cover = tables[n_base : n_base + n_cell]
+    ins = tables[n_base + n_cell :]
+    cell = torch.add(_arange(T, dev), w, alpha=T)  # w * T + t
     valid = col_sym < 5
-    col = col_sym.to(torch.int64).clamp(0, 4)
-    cell = w * T + t_idx
-    n_base = NWIN * T * 5
-    base = torch.zeros(n_base + 1, dtype=torch.int32, device=dev)
     base.index_add_(
-        0, torch.where(valid, cell * 5 + col, n_base).reshape(-1),
-        torch.where(valid, col_w, 0).reshape(-1),
+        0, torch.add(col_sym.clamp(0, 4), cell, alpha=5).view(-1),
+        torch.where(valid, col_w, 0).view(-1),
     )
-    cover = torch.zeros(NWIN * T + 1, dtype=torch.int32, device=dev)
-    cover.index_add_(
-        0, torch.where(valid, cell, NWIN * T).reshape(-1),
-        valid.to(torch.int32).reshape(-1),
-    )
-    tj = torch.arange(T + 1, device=dev)[None, :]
-    imask = ins_b >= 0
-    fb = ins_b.to(torch.int64).clamp(0, 3)
-    junction = cons_runs.to(torch.int64)[w, tj, fb]
-    n_ins = NWIN * (T + 1) * 4
-    ins = torch.zeros(n_ins + 1, dtype=torch.int32, device=dev)
+    cover.index_add_(0, cell.view(-1), valid.to(torch.int32).view(-1))
+    fb = ins_b.clamp(0, 3)
+    jrow = torch.add(_arange(T + 1, dev), w, alpha=T + 1)  # w * (T + 1) + t
+    junction = cons_runs.reshape(-1).take(torch.add(fb, jrow, alpha=4))
     ins.index_add_(
-        0, torch.where(imask, (w * (T + 1) + junction) * 4 + fb, n_ins).reshape(-1),
-        torch.where(imask, ins_w, 0).reshape(-1),
+        0, torch.add(fb, torch.add(junction, w, alpha=T + 1), alpha=4).view(-1),
+        torch.where(ins_b >= 0, ins_w, 0).view(-1),
     )
-    return (
-        base[:n_base].reshape(NWIN, T, 5),
-        ins[:n_ins].reshape(NWIN, T + 1, 4),
-        cover[: NWIN * T].reshape(NWIN, T),
-    )
+    return base.view(NWIN, T, 5), ins.view(NWIN, T + 1, 4), cover.view(NWIN, T)
 
 
 def fused_votes(cons_arr, cons_lens, cons_runs, frags, q_lens, wts, win_idx, T, Q, NWIN):

@@ -25,6 +25,10 @@ declines to the host path loudly): 2k > 30, a sketch chunk denser than the
 per-chunk capacity, more than 2^28 entries, occurrence above MAX_D + 1,
 pair codes beyond SAFE_JOIN_ENTRIES, too-frequent entries beyond an eighth
 of the index.
+
+`PartitionedIndex` carries an index of more than 2^28 entries, up to
+MAX_TOTAL_ENTRIES: DeviceIndex parts over disjoint hash ranges, each held
+to the limits above (raven_tpu's PartitionedIndex).
 """
 
 from __future__ import annotations
@@ -47,6 +51,11 @@ MAX_D = 40
 SAFE_JOIN_ENTRIES = (0xFFFFFFFE - MAX_D) // (MAX_D + 1) + 1
 MAX_ENTRIES = 1 << 28  # the largest single index the reference sorts
 MAX_MATCHES = 1 << 30
+# raven_tpu's PartitionedIndex (raven_tpu/overlap/device_index.py:1239-1242):
+# a part's target fill, 3/4 of MAX_ENTRIES, and the partitioned ceiling
+PART_TARGET = 3 << 26
+MAX_TOTAL_ENTRIES = 3 << 28
+HASH_SPACE = 1 << 30  # sketch hashes are below it (ops/sketch.py)
 
 # packed position column: pos | strand << 29 | flag << 30  (pos < 2^29)
 _STRAND_BIT = 29
@@ -72,6 +81,82 @@ def _quarter_at_least(n: int, lo: int, hi: int) -> int:
     k = max((n - 1).bit_length() - 3, 14)
     c = ((n + (1 << k) - 1) >> k) << k
     return max(lo, min(c, hi))
+
+
+def _build_columns(readset, ids, k, w, minhash, with_flags, device, splits=()):
+    """The sketch of `ids` as key-sorted index columns: (key, rid, packed
+    int32 [N], need_flags, capacities), or None past a capacity limit.
+    The ascending hashes `splits` cut the hash space into ranges (a part
+    each); each range may hold at most MAX_ENTRIES entries before the
+    minhash cut, and `capacities` holds each one's padded length."""
+    if 2 * k > 30:
+        return None
+    device = torch.device(device)
+    ids = np.asarray(ids, dtype=np.int64)
+    packed, eff, rids, base, clo, chi = segment_reads_packed(
+        readset, ids, k, w, width=SEG_WIDTH
+    )
+    S = packed.shape[0]
+    if S == 0:
+        return None
+    # chunks of read-aligned rows (ops/sketch.py CHUNK_ALIGN); a chunk
+    # whose minimizers exceed the reference's largest per-chunk
+    # capacity (density 0.45) declines as it does there
+    chunk = _pow2_at_least(S, 256, 8192)
+    cap = max(4096, int(chunk * SEG_WIDTH * 0.45) // 4096 * 4096)
+    keys, rid_parts, pos1_parts = [], [], []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, min(c0 + chunk, S))
+        codes = unpack_codes(torch.from_numpy(packed[sl]).to(device))
+        meta = [
+            torch.from_numpy(a[sl]).to(device)
+            for a in (eff, rids, base, clo, chi)
+        ]
+        key, rid, gpos, sb = sketch_segments(codes, *meta, k, w)
+        sel = torch.nonzero(key != UINT32_INF).squeeze(1)
+        if sel.numel() > cap:
+            return None
+        keys.append(key[sel])
+        rid_parts.append(rid[sel])
+        pos1_parts.append((gpos[sel].to(torch.int64) << 1) | sb[sel])
+    key = torch.cat(keys)
+    rid = torch.cat(rid_parts)
+    pos1 = torch.cat(pos1_parts)
+    total = key.numel()
+    counts = torch.bincount(
+        torch.bucketize(key, torch.tensor(splits, dtype=key.dtype, device=device), right=True),
+        minlength=len(splits) + 1,
+    ).tolist()
+    if max(counts) > MAX_ENTRIES:
+        return None
+    capacities = [_quarter_at_least(max(n, 1), 1 << 12, MAX_ENTRIES) for n in counts]
+
+    need_flags = bool(minhash or with_flags)
+    packed_col = (pos1 >> 1) | ((pos1 & 1) << _STRAND_BIT)
+    if need_flags:
+        # minhash subset (minimizer.py minhash semantics): a read's
+        # len // k smallest entries by (hash, position)
+        budget = torch.from_numpy(
+            np.asarray(readset.lengths, dtype=np.int64) // k
+        ).to(device)
+        order = torch.argsort((key << 30) | pos1, stable=True)
+        order = order[torch.argsort(rid[order], stable=True)]
+        r_s = rid[order]
+        # rank within the read: minus the start of its run of equal
+        # rids (a 1-D cummax here ran as one serial scan on the card)
+        rank = torch.arange(total, device=device) - torch.searchsorted(r_s, r_s)
+        flag = torch.empty(total, dtype=torch.bool, device=device)
+        flag[order] = rank < budget[r_s.to(torch.int64)]
+        packed_col |= flag.to(torch.int64) << _FLAG_BIT
+        if minhash:
+            key, rid, packed_col = key[flag], rid[flag], packed_col[flag]
+    order = torch.argsort(key, stable=True)
+    return (
+        key[order].to(torch.int32),
+        rid[order].to(torch.int32),
+        packed_col[order].to(torch.int32),
+        need_flags, capacities,
+    )
 
 
 class DeviceIndex:
@@ -104,71 +189,11 @@ class DeviceIndex:
     # ----------------------------------------------------------------- build
     @classmethod
     def build(cls, readset, ids, k, w, minhash, with_flags, device):
-        if 2 * k > 30:
+        cols = _build_columns(readset, ids, k, w, minhash, with_flags, device)
+        if cols is None:
             return None
-        device = torch.device(device)
-        ids = np.asarray(ids, dtype=np.int64)
-        packed, eff, rids, base, clo, chi = segment_reads_packed(
-            readset, ids, k, w, width=SEG_WIDTH
-        )
-        S = packed.shape[0]
-        if S == 0:
-            return None
-        # chunks of read-aligned rows (ops/sketch.py CHUNK_ALIGN); a chunk
-        # whose minimizers exceed the reference's largest per-chunk
-        # capacity (density 0.45) declines as it does there
-        chunk = _pow2_at_least(S, 256, 8192)
-        cap = max(4096, int(chunk * SEG_WIDTH * 0.45) // 4096 * 4096)
-        keys, rid_parts, pos1_parts = [], [], []
-        for c0 in range(0, S, chunk):
-            sl = slice(c0, min(c0 + chunk, S))
-            codes = unpack_codes(torch.from_numpy(packed[sl]).to(device))
-            meta = [
-                torch.from_numpy(a[sl]).to(device)
-                for a in (eff, rids, base, clo, chi)
-            ]
-            key, rid, gpos, sb = sketch_segments(codes, *meta, k, w)
-            sel = torch.nonzero(key != UINT32_INF).squeeze(1)
-            if sel.numel() > cap:
-                return None
-            keys.append(key[sel])
-            rid_parts.append(rid[sel])
-            pos1_parts.append((gpos[sel].to(torch.int64) << 1) | sb[sel])
-        key = torch.cat(keys)
-        rid = torch.cat(rid_parts)
-        pos1 = torch.cat(pos1_parts)
-        total = key.numel()
-        if total > MAX_ENTRIES:
-            return None
-        capacity = _quarter_at_least(max(total, 1), 1 << 12, MAX_ENTRIES)
-
-        need_flags = bool(minhash or with_flags)
-        packed_col = (pos1 >> 1) | ((pos1 & 1) << _STRAND_BIT)
-        if need_flags:
-            # minhash subset (minimizer.py minhash semantics): a read's
-            # len // k smallest entries by (hash, position)
-            budget = torch.from_numpy(
-                np.asarray(readset.lengths, dtype=np.int64) // k
-            ).to(device)
-            order = torch.argsort((key << 30) | pos1, stable=True)
-            order = order[torch.argsort(rid[order], stable=True)]
-            r_s = rid[order]
-            # rank within the read: minus the start of its run of equal
-            # rids (a 1-D cummax here ran as one serial scan on the card)
-            rank = torch.arange(total, device=device) - torch.searchsorted(r_s, r_s)
-            flag = torch.empty(total, dtype=torch.bool, device=device)
-            flag[order] = rank < budget[r_s.to(torch.int64)]
-            packed_col |= flag.to(torch.int64) << _FLAG_BIT
-            if minhash:
-                key, rid, packed_col = key[flag], rid[flag], packed_col[flag]
-        order = torch.argsort(key, stable=True)
-        return cls(
-            key[order].to(torch.int32),
-            rid[order].to(torch.int32),
-            packed_col[order].to(torch.int32),
-            need_flags, k, w, capacity,
-        )
-
+        key, rid, packed, need_flags, (capacity,) = cols
+        return cls(key, rid, packed, need_flags, k, w, capacity)
     @classmethod
     def from_host(cls, key, rid, packed, n_entries, has_flags, k, w, device):
         """Wrap numpy index columns (key-sorted, as a JAX-built
@@ -239,6 +264,13 @@ class DeviceIndex:
 
         With chain_k set, chaining runs on the device too and the return
         value is the {read_id: overlaps} dict instead."""
+        cols = self.join_columns(occurrence, batch, need_flags, filtered_out)
+        return None if cols is None else _finish_join(cols, chain_k)
+
+    def join_columns(self, occurrence: int, batch: np.ndarray, need_flags: bool,
+                     filtered_out: dict | None = None):
+        """distance_join's match columns, left on the device; None on a
+        capacity decline."""
         if occurrence > MAX_D + 1:
             return None
         if need_flags and not self.has_flags:
@@ -306,17 +338,7 @@ class DeviceIndex:
             f_pos = (self._packed[sel] & _POS_MASK).cpu().numpy()
             for r, p in zip(f_rid.tolist(), f_pos.tolist()):
                 filtered_out.setdefault(int(r), []).append(int(p))
-
-        if chain_k is not None:
-            from raven_tpu_torch.ops.chain_device import chain_matches_device
-
-            return chain_matches_device(*cols, chain_k)
-        q_id, q_pos, t_id, t_pos, same = (c.cpu().numpy() for c in cols)
-        return (
-            q_id.astype(np.int64), q_pos.astype(np.int64),
-            t_id.astype(np.int64), t_pos.astype(np.int64),
-            same.astype(np.uint8),
-        )
+        return cols
 
     # ------------------------------------------------------------ run stats
     def run_hist(self) -> np.ndarray:
@@ -346,3 +368,89 @@ class DeviceIndex:
             ((packed >> _FLAG_BIT) & 1).astype(bool) if self.has_flags else None
         )
         return key, rid, pos, strand, flags
+
+
+def _finish_join(cols, chain_k):
+    """Match columns to distance_join's result: chained on the device into
+    {read_id: overlaps} with chain_k set, else numpy columns."""
+    if chain_k is not None:
+        from raven_tpu_torch.ops.chain_device import chain_matches_device
+
+        return chain_matches_device(*cols, chain_k)
+    q_id, q_pos, t_id, t_pos, same = (c.cpu().numpy() for c in cols)
+    return (
+        q_id.astype(np.int64), q_pos.astype(np.int64),
+        t_id.astype(np.int64), t_pos.astype(np.int64),
+        same.astype(np.uint8),
+    )
+
+
+class PartitionedIndex:
+    """An index of more than MAX_ENTRIES entries as DeviceIndex parts over
+    disjoint, ascending hash ranges: raven_tpu's PartitionedIndex
+    (raven_tpu/overlap/device_index.py:1219).  A run of equal keys never
+    crosses a range, so the filter's run lengths and the self-join split
+    exactly: the parts join on their own and the union of their matches is
+    chained once.
+
+    raven_tpu re-sketches the reads once a part to fit a TPU's memory; here
+    the reads are sketched once and the key-sorted columns cut at the
+    range bounds (~13 GB at MAX_TOTAL_ENTRIES), so the minhash flags are
+    the single index's.  Each part keeps its own capacity limits, and any
+    part's decline declines the whole.  Same contract as DeviceIndex
+    (n_entries, has_flags, occurrence_for, distance_join, to_host)."""
+
+    def __init__(self, parts, k, w, has_flags):
+        self.parts = parts
+        self.n_entries = sum(p.n_entries for p in parts)
+        self.has_flags = has_flags
+        self.k = k
+        self.w = w
+
+    @classmethod
+    def build(cls, readset, ids, k, w, minhash, with_flags, device, n_parts):
+        if n_parts < 2:
+            return None
+        splits = [HASH_SPACE * h // n_parts for h in range(1, n_parts)]
+        cols = _build_columns(readset, ids, k, w, minhash, with_flags, device, splits)
+        if cols is None:
+            return None
+        key, rid, packed, need_flags, capacities = cols
+        cuts = [0, *torch.searchsorted(
+            key, torch.tensor(splits, dtype=key.dtype, device=key.device)
+        ).tolist(), key.numel()]
+        parts = [
+            DeviceIndex(key[a:b], rid[a:b], packed[a:b], need_flags, k, w, cap)
+            for a, b, cap in zip(cuts, cuts[1:], capacities)
+        ]
+        return cls(parts, k, w, need_flags)
+
+    def occurrence_for(self, frequency: float) -> int:
+        """ram Filter over the run lengths of every part (DeviceIndex's)."""
+        if frequency <= 0 or self.n_entries == 0:
+            return np.iinfo(np.int64).max
+        for p in self.parts:
+            p._ensure_counts()
+        run_len = torch.cat([p._run_len for p in self.parts])
+        target = min(int((1.0 - frequency) * run_len.numel()), run_len.numel() - 1)
+        return int(torch.sort(run_len).values[target])
+
+    def distance_join(self, occurrence: int, batch: np.ndarray, need_flags: bool,
+                      filtered_out: dict | None = None, chain_k: int | None = None):
+        """DeviceIndex.distance_join over the parts: their match columns
+        concatenated on the device, then chained or returned once."""
+        parts = []
+        for p in self.parts:
+            cols = p.join_columns(occurrence, batch, need_flags, filtered_out)
+            if cols is None:
+                return None
+            parts.append(cols)
+        return _finish_join(tuple(torch.cat(c) for c in zip(*parts)), chain_k)
+
+    def to_host(self):
+        """The parts' host columns concatenated (the ranges ascend, so the
+        result stays key-sorted)."""
+        views = [p.to_host() for p in self.parts]
+        cols = [np.concatenate([v[i] for v in views]) for i in range(4)]
+        flags = np.concatenate([v[4] for v in views]) if self.has_flags else None
+        return (*cols, flags)

@@ -6,8 +6,9 @@ The torch port of raven_tpu/overlap/engine.py, the replacement for the
 struct-of-arrays (hash-sorted), so lookup is binary search
 (np.searchsorted) instead of a pointer hash table and candidate expansion
 is a vectorized gather.  Inputs of DEVICE_MIN_BASES or more build the
-device-resident index (overlap/device_index.py) on the engine's device;
-smaller ones take the host path.  Where the device path cannot take an
+device-resident index (overlap/device_index.py) on the engine's device,
+partitioned by hash range above one DeviceIndex's entries; smaller ones
+take the host path.  Where the device path cannot take an
 input (a capacity limit), the engine says so on stderr, counts it in
 `MinimizerIndex.host_declines` and runs the host path.
 
@@ -25,7 +26,13 @@ import numpy as np
 
 from raven_tpu_torch.device import resolve_device
 from raven_tpu_torch.overlap import chain as chain_mod
-from raven_tpu_torch.overlap.device_index import MAX_ENTRIES, DeviceIndex
+from raven_tpu_torch.overlap.device_index import (
+    MAX_ENTRIES,
+    MAX_TOTAL_ENTRIES,
+    PART_TARGET,
+    DeviceIndex,
+    PartitionedIndex,
+)
 from raven_tpu_torch.overlap.minimizer import minimize_read, minimize_reads
 from raven_tpu_torch.overlap.types import OVERLAP_DTYPE
 
@@ -53,6 +60,10 @@ class MinimizerIndex:
     # inputs of at least this many bases build the device index; smaller
     # ones are faster on the host (tests lower it to drive the device path)
     DEVICE_MIN_BASES = 8_000_000
+    # parts of the hash-range-partitioned index: 0 takes it only above one
+    # DeviceIndex's entries, with a part per PART_TARGET entries; a count
+    # of 2 or more forces it (raven_tpu's RAVEN_TPU_INDEX_PARTS)
+    INDEX_PARTS = 0
     # device-path declines to the host path, over every engine in the
     # process (a run reads it to show the device path took everything)
     host_declines = 0
@@ -127,8 +138,9 @@ class MinimizerIndex:
         )
 
     def _device_build(self, readset, ids, minhash, with_query_flags) -> bool:
-        """Build the index device-resident; returns False to fall through
-        to the host build (inputs under DEVICE_MIN_BASES, or a decline)."""
+        """Build the index device-resident, partitioned above MAX_ENTRIES
+        entries; returns False to fall through to the host build (inputs
+        under DEVICE_MIN_BASES, or a decline)."""
         if ids.size == 0:
             return False
         total = int(readset.lengths[np.asarray(ids, np.int64)].sum())
@@ -139,16 +151,22 @@ class MinimizerIndex:
             return False
         # entry estimate ~2/(w+1) per base
         est = total * 2 // (self.w + 1)
-        if est > MAX_ENTRIES:
+        if est > MAX_TOTAL_ENTRIES:
             self._decline(
-                f"~{est} index entries exceed one device index "
-                f"({MAX_ENTRIES}); the partitioned index is not ported"
+                f"~{est} index entries exceed the partitioned index's "
+                f"ceiling ({MAX_TOTAL_ENTRIES})"
             )
             return False
-        self._device = DeviceIndex.build(
-            readset, ids, self.k, self.w, minhash, with_query_flags,
-            self.device,
-        )
+        if self.INDEX_PARTS > 1 or est > MAX_ENTRIES:
+            self._device = PartitionedIndex.build(
+                readset, ids, self.k, self.w, minhash, with_query_flags,
+                self.device, max(2, self.INDEX_PARTS or -(-est // PART_TARGET)),
+            )
+        else:
+            self._device = DeviceIndex.build(
+                readset, ids, self.k, self.w, minhash, with_query_flags,
+                self.device,
+            )
         if self._device is None:
             self._decline(
                 "a sketch chunk or the entry count exceeds the device "

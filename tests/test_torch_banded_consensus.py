@@ -72,8 +72,8 @@ def _t(a):
 
 
 CASES = (
-    "default spans", "partial spans", "one-row spans", "longer than the span",
-    "qlen 0", "tlen < T", "all mismatches", "walks from row 0",
+    "default spans", "partial spans", "one-row spans", "steep spans",
+    "longer than the span", "qlen 0", "tlen < T", "all mismatches", "walks from row 0",
 )
 
 
@@ -101,6 +101,13 @@ def _banded_case(name, T, Q, B=24):
             # start leaps past BW columns there
             r0[b] = rng.integers(0, tl[b])
             r1[b] = r0[b] + 1
+            src = np.resize(src, Q)[: int(rng.integers(Q // 2, Q + 1))]
+        elif name == "steep spans" and b % 2:
+            # a fragment as long as the band or longer anchored on a span of
+            # 2 to ~T/3 rows: its band start steps by several columns a row,
+            # beside a fragment on its whole consensus
+            r0[b] = rng.integers(0, tl[b] // 2)
+            r1[b] = r0[b] + rng.integers(2, max(3, T // 3))
             src = np.resize(src, Q)[: int(rng.integers(Q // 2, Q + 1))]
         elif name == "longer than the span":  # slope 2
             src = np.concatenate([src, src])
@@ -199,6 +206,10 @@ def test_nw_moves_and_walk_banded_plain_match_jax(name, shape):
         # the band leaps by at least BW on a row of some fragment
         off = got[1].numpy().astype(np.int64)
         assert (np.diff(off, axis=0) >= BW).any()
+    if name == "steep spans":
+        # band starts step by 3 to BW - 1 columns on rows of some fragments
+        step = np.diff(got[1].numpy().astype(np.int64), axis=0)
+        assert ((step >= 3) & (step < BW)).any()
 
 
 @pytest.mark.parametrize("shape", [(96, 160, 128), (96, 320, 256)], ids=["BW128", "BW256"])

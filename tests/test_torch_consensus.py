@@ -171,6 +171,39 @@ def test_fused_votes_match_fused_votes_kernel(shape):
         assert np.array_equal(g.numpy(), np.asarray(w)), name
 
 
+@pytest.mark.parametrize("share", [0.01, 0.0], ids=["few-votes", "no-votes"])
+def test_votes_from_primitives_sparse_matches_jax(share):
+    """The vote epilogue on primitives where nearly every entry, or every
+    one, carries no vote (each adds 0 at its own cell, where raven_tpu
+    masks it): the tables equal raven_tpu's votes_from_primitives, and
+    with no vote at all they are zero.  The entries without a vote carry
+    weights that must not be counted."""
+    NWIN, T, B = 6, 96, 40
+    rng = np.random.default_rng(29)
+    cons_lens = rng.integers(T // 2, T, NWIN).astype(np.int32)
+    cons_arr = np.where(
+        np.arange(T)[None, :] < cons_lens[:, None], rng.integers(0, 4, (NWIN, T)), -1
+    ).astype(np.int32)
+    cons_runs = jcd.homopolymer_run_map(cons_arr, cons_lens)
+    win_idx = rng.integers(0, NWIN, B).astype(np.int32)
+    vote = rng.random((B, T)) < share
+    col_sym = np.where(vote, rng.integers(0, 5, (B, T)), 5).astype(np.int32)
+    col_w = rng.integers(0, 256, (B, T)).astype(np.int32)
+    ins = rng.random((B, T + 1)) < share
+    ins_b = np.where(ins, rng.integers(0, 4, (B, T + 1)), -1).astype(np.int32)
+    ins_w = rng.integers(0, 256, (B, T + 1)).astype(np.int32)
+    case = (col_sym, col_w, ins_b, ins_w, win_idx, cons_runs)
+    want = jpc.votes_from_primitives(*(jnp.asarray(a) for a in case), T=T, NWIN=NWIN)
+    got = tcc.votes_from_primitives(*(_t(a) for a in case), T, NWIN)
+    for name, g, w in zip(("base_votes", "ins_votes", "cover"), got, want):
+        assert g.dtype == torch.int32, name
+        assert np.array_equal(g.numpy(), np.asarray(w)), name
+        if share == 0.0:
+            assert not g.numpy().any(), name
+    if share > 0.0:
+        assert got[0].numpy().any() and got[1].numpy().any()
+
+
 def test_host_helpers_are_copies():
     rng = np.random.default_rng(3)
     cons = rng.integers(0, 4, (6, 40)).astype(np.int32)

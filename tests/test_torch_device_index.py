@@ -1,7 +1,9 @@
 """Port DeviceIndex (raven_tpu_torch.overlap.device_index) vs the JAX
 package's, on the CPU: the built columns, the occurrence filter, the run
 statistics, the self-join match set and the too-frequent entries, all on
-the same reads; plus from_host round trips and the loud occurrence decline.
+the same reads; plus from_host round trips and the loud occurrence decline;
+and the hash-range-partitioned index against raven_tpu's, with the
+engine's route to it.
 """
 
 import numpy as np
@@ -14,7 +16,9 @@ from raven_tpu.io.readset import ReadSet  # noqa: E402
 from raven_tpu.overlap.engine import MinimizerIndex  # noqa: E402
 from raven_tpu_torch.io.readset import ReadSet as TReadSet  # noqa: E402
 from raven_tpu_torch.overlap import device_index as tdi  # noqa: E402
+from raven_tpu_torch.overlap import engine as tengine  # noqa: E402
 from raven_tpu_torch.overlap.engine import MinimizerIndex as TIndex  # noqa: E402
+from raven_tpu_torch.utils.synth import overlap_digest  # noqa: E402
 from tests.conftest import random_genome, sample_reads  # noqa: E402
 
 
@@ -151,3 +155,113 @@ def test_occurrence_beyond_max_d_declines_loudly(reads, monkeypatch, capsys):
     assert "device path declined" in capsys.readouterr().err
     assert t._hashes is not None  # materialized for the host join
     assert sum(v.size for v in out.values()) > 0
+
+
+def _overlap_stage(idx, rs, minhash):
+    """filter, then map_many(minhash=True) with the too-frequent positions
+    collected: (occurrence, overlap digest, filtered-out positions)."""
+    idx.filter(0.001)
+    fo = {}
+    out = idx.map_many(rs, np.arange(len(rs)), minhash=True, filtered_out=fo)
+    return int(idx._occurrence), overlap_digest(out), {r: sorted(p) for r, p in fo.items()}
+
+
+@pytest.mark.parametrize("minhash", [False, True])
+def test_partitioned_index_matches(reads, minhash, monkeypatch):
+    """Three forced parts on both sides (raven_tpu's RAVEN_TPU_INDEX_PARTS,
+    the port's MinimizerIndex.INDEX_PARTS): the same parts, entries and
+    flags (each read's minhash rank spans the parts), occurrence, overlaps
+    and too-frequent positions."""
+    from raven_tpu.overlap.device_index import PartitionedIndex
+
+    monkeypatch.setenv("RAVEN_TPU_INDEX_PARTS", "3")
+    rs, j = _jax_index(reads, minhash, monkeypatch)
+    assert isinstance(j._device, PartitionedIndex)
+    monkeypatch.setattr(TIndex, "DEVICE_MIN_BASES", 0)
+    monkeypatch.setattr(TIndex, "INDEX_PARTS", 3)
+    trs = TReadSet.from_sequences(reads)
+    t = TIndex(15, 5, device="cpu")
+    t.minimize(trs, np.arange(len(trs)), minhash=minhash, with_query_flags=not minhash)
+    assert isinstance(t._device, tdi.PartitionedIndex)
+    assert [p.n_entries for p in t._device.parts] == [p.n_entries for p in j._device.parts]
+    assert t.num_minimizers == j.num_minimizers
+    for x, y in zip(_lexsorted(t._device.to_host()), _lexsorted(j._device.to_host())):
+        assert np.array_equal(x, y)
+    # each part is key-sorted and the ranges ascend
+    key = t._device.to_host()[0]
+    assert np.array_equal(key, np.sort(key))
+    got = _overlap_stage(t, trs, minhash)
+    want = _overlap_stage(j, rs, minhash)
+    assert got[1][1] > 0
+    assert got == want
+
+
+def test_partitioned_occurrence_matches_jax():
+    """occurrence_for over parts is the global quantile of every part's
+    run lengths, also where it lies past raven_tpu's 4096-bin histogram
+    (tests/test_device_index.py::test_partitioned_occurrence_clipped_tail's
+    runs)."""
+    import jax.numpy as jnp
+
+    from raven_tpu.overlap.device_index import DeviceIndex, PartitionedIndex
+
+    runs_a = [6000, 9] + [2] * 200
+    runs_b = [4500] + [3] * 300
+
+    def keys(runs, base):
+        return np.repeat(base + np.arange(len(runs)), runs).astype(np.int64)
+
+    def jax_part(runs, base):
+        k = keys(runs, base)
+        N = 1 << 14
+        key = np.full(N, 0xFFFFFFFF, np.uint32)
+        key[: k.size] = k
+        z = jnp.zeros(N, jnp.int32)
+        return DeviceIndex(jnp.asarray(key), z, z, int(k.size), False, 15, 5)
+
+    def torch_part(runs, base):
+        k = torch.from_numpy(keys(runs, base)).to(torch.int32)
+        z = torch.zeros_like(k)
+        return tdi.DeviceIndex(k, z, z, False, 15, 5)
+
+    parts = [(runs_a, 0), (runs_b, 1 << 20)]
+    j = PartitionedIndex([jax_part(*p) for p in parts], 15, 5, False)
+    t = tdi.PartitionedIndex([torch_part(*p) for p in parts], 15, 5, False)
+    all_runs = np.sort(np.array(runs_a + runs_b))
+    for f in (0.0005, 0.001, 0.004, 0.05):
+        target = min(int((1.0 - f) * all_runs.size), all_runs.size - 1)
+        assert t.occurrence_for(f) == j.occurrence_for(f) == int(all_runs[target])
+
+
+def test_engine_partitions_above_one_index(reads, monkeypatch, capsys):
+    """Unforced, the engine takes the partitioned index above one
+    DeviceIndex's entries, with a part per PART_TARGET entries, and gives
+    the single index's overlaps; above the partitioned ceiling it declines
+    to the host build, loudly and counted.  (The limits are lowered to
+    this input's estimate.)"""
+    monkeypatch.setattr(TIndex, "DEVICE_MIN_BASES", 0)
+    rs = TReadSet.from_sequences(reads)
+    ids = np.arange(len(rs))
+    est = int(rs.lengths.sum()) * 2 // 6
+    single = TIndex(15, 5, device="cpu")
+    single.minimize(rs, ids, with_query_flags=True)
+    assert isinstance(single._device, tdi.DeviceIndex)
+    want = _overlap_stage(single, rs, False)
+
+    monkeypatch.setattr(tengine, "MAX_ENTRIES", est - 1)
+    monkeypatch.setattr(tengine, "PART_TARGET", est // 3 + 1)
+    part = TIndex(15, 5, device="cpu")
+    part.minimize(rs, ids, with_query_flags=True)
+    assert isinstance(part._device, tdi.PartitionedIndex)
+    assert len(part._device.parts) == 3
+    assert _overlap_stage(part, rs, False) == want
+
+    monkeypatch.setattr(tengine, "MAX_TOTAL_ENTRIES", est - 1)
+    before = TIndex.host_declines
+    capsys.readouterr()
+    host = TIndex(15, 5, device="cpu")
+    host.minimize(rs, ids, with_query_flags=True)
+    assert host._device is None
+    assert TIndex.host_declines == before + 1
+    assert "partitioned index's ceiling" in capsys.readouterr().err
+    assert _overlap_stage(host, rs, False) == want

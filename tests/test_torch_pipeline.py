@@ -32,7 +32,9 @@ def reads():
     return reads
 
 
-def test_cli_p0_contigs_byte_identical(reads, tmp_path, monkeypatch, capsys):
+def _cli_p0_outputs(reads, tmp_path, monkeypatch, capsys):
+    """The port's and raven_tpu's -p 0 FASTA on `reads`, with both device
+    paths forced on (the port on the CPU); the port must not decline."""
     path = tmp_path / "reads.fasta"
     with open(path, "w") as fh:
         for i, r in enumerate(reads):
@@ -56,9 +58,36 @@ def test_cli_p0_contigs_byte_identical(reads, tmp_path, monkeypatch, capsys):
     jlayout.reset_seed()
     assert jcli.main([str(path), "-p", "0", "--disable-checkpoints"]) == 0
     want = capsys.readouterr().out
+    assert TIndex.host_declines == declines
+    return got, want
+
+
+def test_cli_p0_contigs_byte_identical(reads, tmp_path, monkeypatch, capsys):
+    got, want = _cli_p0_outputs(reads, tmp_path, monkeypatch, capsys)
     assert got.startswith(">") and got.count(">") >= 1
     assert got == want
-    assert TIndex.host_declines == declines
+
+
+def test_cli_p0_partitioned_index_byte_identical(reads, tmp_path, monkeypatch, capsys):
+    """Both packages' indexes in two hash-range parts
+    (tests/test_device_index.py::test_partitioned_construct_end_to_end)."""
+    from raven_tpu.overlap import device_index as jdi
+    from raven_tpu_torch.overlap import device_index as tdi
+
+    monkeypatch.setattr(TIndex, "INDEX_PARTS", 2)
+    monkeypatch.setenv("RAVEN_TPU_INDEX_PARTS", "2")
+    built = {"port": 0, "raven_tpu": 0}
+    for name, cls in (("port", tdi.PartitionedIndex), ("raven_tpu", jdi.PartitionedIndex)):
+        def spy(klass, *a, _orig=cls.build.__func__, _name=name, **kw):
+            r = _orig(klass, *a, **kw)
+            built[_name] += r is not None
+            return r
+
+        monkeypatch.setattr(cls, "build", classmethod(spy))
+    got, want = _cli_p0_outputs(reads, tmp_path, monkeypatch, capsys)
+    assert built["port"] > 0 and built["raven_tpu"] > 0
+    assert got.startswith(">") and got.count(">") >= 1
+    assert got == want
 
 
 def test_raven_tpu_checkpoint_assembles_the_same(reads, tmp_path, monkeypatch):
@@ -87,8 +116,9 @@ def test_raven_tpu_checkpoint_assembles_the_same(reads, tmp_path, monkeypatch):
 def test_index_batch_budget_matches_reference(monkeypatch):
     """tests/test_misc.py::test_streaming_index_batch_clamp's budget: with
     the index on the CPU the port batches at raven_tpu's 2^32 bases, as
-    raven_tpu does on a CPU backend; on a card it clamps below 2^32 to what
-    one device index holds."""
+    raven_tpu does on a CPU backend; on a card it clamps to raven_tpu's
+    budget on a device backend (its partitioned index's ceiling).  The
+    port's function reads only the device's type, so no card is needed."""
     import torch
 
     from raven_tpu.graph import construct as jconstruct
@@ -100,4 +130,7 @@ def test_index_batch_budget_matches_reference(monkeypatch):
     want = jconstruct._index_batch_bytes()
     assert want == 1 << 32
     assert tconstruct._index_batch_bytes(torch.device("cpu")) == want
-    assert tconstruct._index_batch_bytes(torch.device("cuda")) < (1 << 32)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    want_card = jconstruct._index_batch_bytes()
+    assert want_card == 2_174_327_193
+    assert tconstruct._index_batch_bytes(torch.device("cuda")) == want_card
