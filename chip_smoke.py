@@ -26,11 +26,21 @@ failure:
      must give the same overlaps; one more steady pass under
      torch.profiler gives the device's busy share and the ops that take
      the most device time;
+ 3b. the same stage through the hash-range-sharded index
+     (raven_tpu_torch.parallel) on a virtual mesh of 4 shards on the card,
+     forced by MinimizerIndex.MESH: the single index's digest and
+     occurrence, K1 launched, no decline, its steady wall and peak device
+     memory beside the single index's (and once on every card when there
+     are 2 or more);
   4. the main path: `raven_tpu_torch.cli.main([reads, "-p", "0", ...])` on
      a 1 Mb genome at 30x with indels, which must give one contig of at
      least 0.97 of the genome with every overlap index built by K1; then
      again on a 1 Mb genome with a repeat family, whose junction component
      (512 nodes or more) must send the layout n-body to the card;
+ 4b. the Python API (raven_tpu_torch.api) on the first run's reads: its
+     sub-stages on the card must give the GFA of `cli.main([reads, "-p",
+     "0", "-F", gfa])`, byte for byte, and construct_graph(checkpoints=True),
+     a load of the checkpoint and assemble_graph the sub-stages' unitigs;
   5. the layout n-body against the float64 host loop on the card, and
      through the assemble stage remove_long_edges on a 601-node junction
      component built by hand;
@@ -68,6 +78,11 @@ failure:
      band's edge); how the walks ended, median times over CUDA events
      beside the bound and K2's time at the same chunk, K10's serial floor,
      and K9's and K10's SASS loop sizes;
+ 8b. the mesh votes: device_window_consensus (full-NW and banded) and
+     band_window_consensus on the whole window bank, each with its votes
+     on a virtual mesh of 4 shards on the card, bit-identical to the
+     single-device call (K2, K9/K10 or K3/K4 launched on the shards), both
+     walls printed (and once on every card when there are 2 or more);
   9. the main path with polish: `raven_tpu_torch.cli.main([reads, "-p",
      "2", "--device-poa-batches", "8", "-t", <cores>, ...])` on phase 4's
      1 Mb x 30x reads, which must give one contig of at least 0.97 of the
@@ -75,6 +90,8 @@ failure:
      genome (the synthetic golden gate), with K2 and the crossing DP run
      on the card, and the consensus calls split into K2 and the vote
      epilogue;
+ 9b. the same CLI run with the Polisher forced onto a virtual mesh of 4
+     shards (Polisher.MESH): phase 9's contig, byte for byte;
  10. the default polish: the same reads through `-p 2 -t <cores>` (host
      POA in round 0, the shift-banded consensus on the card in round 1),
      with the same gate, K3 and K4 launched 64 times each, the crossing DP
@@ -569,19 +586,21 @@ def sketch_edge_case(codes_all, eff_all, S: int, L: int, k: int):
     return codes.contiguous(), lens.contiguous()
 
 
-def overlap_stage(readset, device, parts: int = 0):
+def overlap_stage(readset, device, parts: int = 0, mesh=None):
     """minimize -> filter -> map_many on `device`, with the index in
-    `parts` hash-range parts when 2 or more: (wall, stage walls, overlaps,
-    occurrence)."""
+    `parts` hash-range parts when 2 or more, or sharded over `mesh`:
+    (wall, stage walls, overlaps, occurrence)."""
     import torch
 
     from raven_tpu_torch.overlap.device_index import PartitionedIndex
     from raven_tpu_torch.overlap.engine import MinimizerIndex
+    from raven_tpu_torch.parallel.sharded_index import ShardedIndex
 
     ids = np.arange(len(readset))
     t0 = time.perf_counter()
     idx = MinimizerIndex(K, W, device=device)
     idx.INDEX_PARTS = parts
+    idx.MESH = mesh
     idx.minimize(readset, ids, minhash=False, with_query_flags=True)
     torch.cuda.synchronize()  # each stage's wall holds its own device work
     t1 = time.perf_counter()
@@ -593,9 +612,12 @@ def overlap_stage(readset, device, parts: int = 0):
     t3 = time.perf_counter()
     require(idx._device is not None and idx._hashes is None,
             "overlap stage left the device path")
-    require(isinstance(idx._device, PartitionedIndex) == (parts > 1),
-            f"the index was not built in {parts} parts" if parts > 1
-            else "the index was partitioned")
+    if mesh is not None:
+        require(isinstance(idx._device, ShardedIndex), f"the index was not sharded over {mesh}")
+    else:
+        require(isinstance(idx._device, PartitionedIndex) == (parts > 1),
+                f"the index was not built in {parts} parts" if parts > 1
+                else "the index was partitioned")
     return t3 - t0, (t1 - t0, t2 - t1, t3 - t2), res, int(idx._occurrence)
 
 
@@ -681,7 +703,56 @@ def phase_overlap(readset, device, child, child_out):
     log("overlap digest equal to the port's host path")
     return {"cold_s": cold, "steady_s": steady, "bases": bases,
             "bases_per_s": bases / steady, "overlaps": n_ov,
-            "launches": launches}
+            "launches": launches, "peak_bytes": peak, "digest": digest, "occ": occ}
+
+
+def phase_sharded(readset, device, ov):
+    """The overlap stage through the hash-range-sharded index on a virtual
+    mesh of 4 shards on one card (MinimizerIndex.MESH): the single
+    index's digest and occurrence, K1 launched on each shard, no decline;
+    its steady wall and peak device memory beside the single index's (a
+    virtual mesh's wall is the exchange and the per-shard launches on one
+    card, not what 4 cards would give).  With 2 or more cards, once more
+    on make_mesh()."""
+    import torch
+
+    from raven_tpu_torch.ops import sketch_cuda
+    from raven_tpu_torch.overlap.engine import MinimizerIndex
+    from raven_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from raven_tpu_torch.utils.synth import overlap_digest
+
+    mesh = Mesh([device] * 4)
+    sketch_cuda.LAUNCHES = 0
+    MinimizerIndex.host_declines = 0
+    cold, _, res, occ = overlap_stage(readset, device, mesh=mesh)
+    launches = sketch_cuda.LAUNCHES
+    declines = MinimizerIndex.host_declines
+    require(overlap_digest(res)[0] == ov["digest"] and occ == ov["occ"],
+            "the sharded index's overlaps differ from the single index's")
+    torch.cuda.reset_peak_memory_stats()
+    steady, walls, res, _ = overlap_stage(readset, device, mesh=mesh)
+    peak = torch.cuda.max_memory_allocated()
+    require(overlap_digest(res)[0] == ov["digest"], "the sharded steady pass differs")
+    log(
+        f"sharded index on a virtual mesh of 4 shards on one card ({mesh}): cold "
+        f"{cold:.3f} s, steady {steady:.3f} s (minimize {walls[0]:.3f}, filter "
+        f"{walls[1]:.3f}, map {walls[2]:.3f}) against the single index's steady "
+        f"{ov['steady_s']:.3f} s; peak device memory {peak} B against {ov['peak_bytes']} "
+        f"B; K1 launches {launches}; host declines {declines}; the single index's "
+        "overlap digest and occurrence"
+    )
+    require(launches > 0, "the sharded index launched K1 no time")
+    require(declines == 0, f"{declines} sharded-path declines")
+    out = {"steady_s": steady, "cold_s": cold, "peak_bytes": peak, "launches": launches,
+           "cards_steady_s": None}
+    if torch.cuda.device_count() > 1:
+        cards = make_mesh()
+        wall, _, res, occ = overlap_stage(readset, device, mesh=cards)
+        require(overlap_digest(res)[0] == ov["digest"] and occ == ov["occ"],
+                f"the index sharded over {cards} differs from the single index")
+        out["cards_steady_s"] = wall
+        log(f"sharded index over {cards}: {wall:.3f} s, the single index's digest")
+    return out
 
 
 def make_genome(rng, size: int, repeat: tuple | None = None) -> np.ndarray:
@@ -702,17 +773,10 @@ def make_genome(rng, size: int, repeat: tuple | None = None) -> np.ndarray:
     return genome
 
 
-def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> dict:
-    """One `raven_tpu_torch.cli.main([reads, *flags, ...])` run on reads
-    simulated at 30x (mean 9 kb, 2.5% substitutions, 1.25% insertions,
-    1.25% deletions, seed 77); every count starts at 0 right before it and
-    is read right after."""
-    from raven_tpu_torch import cli
-    from raven_tpu_torch.graph import layout
-    from raven_tpu_torch.io.readset import encode
-    from raven_tpu_torch.ops import band_cuda, banded_cuda, consensus_cuda, dp_device
-    from raven_tpu_torch.ops import sketch_cuda
-    from raven_tpu_torch.overlap.engine import MinimizerIndex
+def write_reads(work_dir, genome_size, repeat=None):
+    """Reads simulated at 30x (mean 9 kb, 2.5% substitutions, 1.25%
+    insertions, 1.25% deletions, seed 77) from make_genome's genome, as
+    FASTA in work_dir: (path, genome, reads)."""
     from raven_tpu_torch.utils.synth import simulate_reads
 
     rng = np.random.default_rng(77)
@@ -723,6 +787,21 @@ def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> di
     with open(path, "wb") as fh:
         for i, r in enumerate(reads):
             fh.write(b">r%d\n" % i + lut[r].tobytes() + b"\n")
+    return path, genome, reads
+
+
+def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> dict:
+    """One `raven_tpu_torch.cli.main([reads, *flags, ...])` run on
+    write_reads's reads; every count starts at 0 right before it and is
+    read right after."""
+    from raven_tpu_torch import cli
+    from raven_tpu_torch.graph import layout
+    from raven_tpu_torch.io.readset import encode
+    from raven_tpu_torch.ops import band_cuda, banded_cuda, consensus_cuda, dp_device
+    from raven_tpu_torch.ops import sketch_cuda
+    from raven_tpu_torch.overlap.engine import MinimizerIndex
+
+    path, genome, reads = write_reads(work_dir, genome_size, repeat)
     argv = [path, *flags, "--disable-checkpoints", "--device", device]
     timings: dict = {}
     out = io.StringIO()
@@ -789,6 +868,84 @@ def phase_cli(device, work_dir, genome_size=1_000_000):
     require(0.97 * genome_size <= total <= 1.1 * genome_size,
             f"contigs hold {total} bp of a {genome_size} bp genome")
     return main, rep
+
+
+def phase_api(device, work_dir, genome_size=1_000_000):
+    """raven_tpu_torch.api on phase 4's reads: the sub-stages
+    (find_overlaps_and_create_piles -> ... -> remove_long_edges_from_graph)
+    on the card must give the GFA that `cli.main([reads, "-p", "0", ...])`
+    gives, byte for byte; then construct_graph(checkpoints=True), a load
+    of the checkpoint and assemble_graph must give the sub-stages'
+    unitigs.  K1 launches are counted over the sub-stages alone."""
+    import torch
+
+    from raven_tpu_torch import api, cli
+    from raven_tpu_torch.graph import layout
+    from raven_tpu_torch.graph.binary import load_graph
+    from raven_tpu_torch.ops import sketch_cuda
+    from raven_tpu_torch.overlap.engine import MinimizerIndex
+
+    path, _, _ = write_reads(work_dir, genome_size)
+    api_gfa = os.path.join(work_dir, "api.gfa")
+    cli_gfa = os.path.join(work_dir, "cli.gfa")
+    layout.reset_seed()
+    sketch_cuda.LAUNCHES = 0
+    MinimizerIndex.host_declines = 0
+    t0 = time.perf_counter()
+    readset = api.load_sequences([path])
+    graph = api.Graph()
+    index = api.MinimizerIndex(K, W, device=device)
+    handle = api.OverlapsHandle(readset)
+    api.find_overlaps_and_create_piles(index, readset, graph, handle)
+    api.trim_and_annotate_piles(graph, handle)
+    api.resolve_contained_reads(graph, handle, readset)
+    api.resolve_chimeric_sequences(graph, handle)
+    api.find_overlaps_and_repetitive_regions(index, graph, handle, readset)
+    api.resolve_repeat_induced_overlaps(graph, handle, readset)
+    api.construct_assembly_graph(graph, handle, readset)
+    api.remove_transitive_edges_from_graph(graph)
+    api.remove_tips_and_bubbles_from_graph(graph)
+    api.remove_long_edges_from_graph(graph, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, declines = sketch_cuda.LAUNCHES, MinimizerIndex.host_declines
+    api.graph_print_gfa(graph, api_gfa)
+    unitigs = api.get_unitigs(graph)
+
+    layout.reset_seed()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main([path, "-p", "0", "--disable-checkpoints", "--device", device,
+                       "-F", cli_gfa])
+    require(rc == 0, f"cli exited {rc}")
+    with open(api_gfa, "rb") as a, open(cli_gfa, "rb") as b:
+        got, want = a.read(), b.read()
+    log(f"api sub-stages ({len(readset)} reads): {wall:.3f} s, K1 launches {launches}, "
+        f"host declines {declines}; GFA {len(got)} B, the cli's {len(want)} B, "
+        f"{'equal' if got == want else 'DIFFERENT'}; {len(unitigs)} unitigs")
+    require(launches > 0, "the api sub-stages launched K1 no time")
+    require(declines == 0, f"{declines} device-path declines")
+    require(got.startswith(b"S\t") and got == want, "the api's GFA differs from the cli's")
+
+    cwd = os.getcwd()
+    os.chdir(work_dir)
+    try:
+        layout.reset_seed()
+        t0 = time.perf_counter()
+        g = api.Graph()
+        api.construct_graph(g, readset, checkpoints=True, device=device)
+        g = load_graph()
+        api.assemble_graph(g, checkpoints=True, device=device)
+        g = load_graph()
+        ck_wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    resumed = api.get_unitigs(g)
+    require(len(resumed) == len(unitigs) > 0 and all(
+        np.array_equal(a.codes, b.codes) for a, b in zip(resumed, unitigs)
+    ), "the checkpointed construct and assemble give other unitigs")
+    log(f"api construct_graph(checkpoints=True) -> load -> assemble_graph -> load: "
+        f"{ck_wall:.3f} s, the sub-stages' {len(unitigs)} unitigs")
+    return {"wall_s": wall, "launches": launches, "checkpoint_wall_s": ck_wall}
 
 
 def phase_layout(device):
@@ -1247,6 +1404,69 @@ def banded_cases():
     return cases
 
 
+def phase_mesh_votes(device):
+    """The window consensus of both engines with its votes on a virtual
+    mesh of 4 shards on one card against the single-device call, bit for
+    bit, on bench_polish.py's window bank (512 windows x 30 fragments):
+    device_window_consensus full-NW and banded (chunks of 2,048 rows, the
+    bank's 15,360 rows padded to 8 chunks, 2 a shard), and
+    band_window_consensus (4 groups of 128 windows, 4,096 rows each, 1,024
+    a shard); 4 iterations each, as the polisher runs them.  Each mesh
+    call's launches are counted over that call alone.  With 2 or more
+    cards, once more on make_mesh()."""
+    import torch
+
+    from raven_tpu_torch.ops import band_cuda, banded_cuda, consensus_cuda
+    from raven_tpu_torch.ops.consensus_band import band_window_consensus
+    from raven_tpu_torch.ops.consensus_device import device_window_consensus
+    from raven_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from raven_tpu_torch.utils.synth import make_windows
+
+    windows, _ = make_windows(512, 500, 30, np.random.default_rng(21))
+    mesh = Mesh([device] * 4)
+    meshes = [mesh] + ([make_mesh()] if torch.cuda.device_count() > 1 else [])
+    engines = (
+        ("full-NW", lambda **k: device_window_consensus(windows, iterations=4, chunk=2048, **k),
+         lambda: {"K2": consensus_cuda.LAUNCHES}),
+        ("banded", lambda **k: device_window_consensus(windows, iterations=4, chunk=2048,
+                                                       banded=True, **k),
+         lambda: {"K9": banded_cuda.LAUNCHES["nw_moves_banded"],
+                  "K10": banded_cuda.LAUNCHES["traceback_banded"]}),
+        ("shift-banded", lambda **k: band_window_consensus(windows, iterations=4, **k),
+         lambda: {"K3": band_cuda.LAUNCHES["band_forward"],
+                  "K4": band_cuda.LAUNCHES["mask_walk_votes"]}),
+    )
+    out = {}
+    for name, call, count in engines:
+        call(device=device)  # warm: the first call of an engine loads its kernels
+        t0 = time.perf_counter()
+        want = call(device=device)
+        single = time.perf_counter() - t0
+        walls = []
+        for m in meshes:
+            consensus_cuda.LAUNCHES = 0
+            banded_cuda.LAUNCHES.update(dict.fromkeys(banded_cuda.LAUNCHES, 0))
+            band_cuda.LAUNCHES.update(dict.fromkeys(band_cuda.LAUNCHES, 0))
+            t0 = time.perf_counter()
+            got = call(mesh=m)
+            walls.append(time.perf_counter() - t0)
+            launches = count()
+            require(len(got) == len(want) and all(
+                np.array_equal(a, b) for a, b in zip(got, want)
+            ), f"the {name} consensus on {m} differs from one device's")
+            require(min(launches.values()) > 0,
+                    f"the {name} consensus on {m} launched a kernel no time: {launches}")
+            if m is mesh:
+                out[name] = {"single_s": single, "mesh_s": walls[0], "launches": launches}
+            log(f"{name} window consensus on {m}: {walls[-1]:.3f} s against one "
+                f"device's {single:.3f} s, {launches} kernel launches, bit-equal")
+        if len(walls) > 1:
+            out[name]["cards_s"] = walls[1]
+    log("(a virtual mesh's wall is the per-shard launches and the sums on one card, "
+        "not what 4 cards would give)")
+    return out
+
+
 def first_diffs(got, want, names) -> str:
     """Where each pair of equal-shaped tensors differs: its count of
     differing entries and the first index."""
@@ -1584,6 +1804,28 @@ def phase_polish(device, work_dir, draft):
     return run
 
 
+def phase_polish_mesh(device, work_dir, pol, genome_size=1_000_000):
+    """Phase 9's CLI run (-p 2 --device-poa-batches 8) with the Polisher
+    forced onto a virtual mesh of 4 shards on one card (Polisher.MESH):
+    phase 9's contig, byte for byte, with K2 launched on the shards."""
+    from raven_tpu_torch.parallel.mesh import Mesh
+    from raven_tpu_torch.polish.polisher import Polisher
+
+    flags = ("-p", "2", "--device-poa-batches", "8", "-t", str(os.cpu_count()))
+    Polisher.MESH = Mesh([device] * 4)
+    try:
+        run = cli_run(device, work_dir, genome_size, flags=flags)
+    finally:
+        Polisher.MESH = None
+    require(run["k2_launches"] > 0, "the mesh polish launched K2 no time")
+    require(len(run["contigs"]) == 1 and np.array_equal(run["contigs"][0], pol["contigs"][0]),
+            "the mesh polish's contig differs from phase 9's")
+    log(f"  the Polisher on a virtual mesh of 4 shards on one card: polish "
+        f"{run['polish_s']:.3f} s against phase 9's {pol['polish_s']:.3f} s; K2 launches "
+        f"{run['k2_launches']} (phase 9: {pol['k2_launches']}); phase 9's contig")
+    return run
+
+
 def phase_polish_default(device, work_dir, draft):
     """-p 2 as users run it: the host POA in round 0, the shift-banded
     consensus on the card (K3, K4, the K5 torch ops) in round 1."""
@@ -1674,17 +1916,21 @@ def run() -> dict:
         device = "cuda"
         k1 = phase_sketch(readset, device)
         ov = phase_overlap(readset, device, child, child_out)
+        shd = phase_sharded(readset, device, ov)
     finally:
         if child.poll() is None:
             child.kill()
             child.wait()
     del readset
     main_path, repeat_path = phase_cli(device, work)
+    api_run = phase_api(device, work)
     lay = phase_layout(device)
     k2 = phase_votes(device)
     k3, k4 = phase_band(device)
     k9, k10 = phase_banded(device, k2["ms"])
+    mv = phase_mesh_votes(device)
     pol = phase_polish(device, work, main_path["contigs"][0])
+    pol_mesh = phase_polish_mesh(device, work, pol)
     dflt = phase_polish_default(device, work, main_path["contigs"][0])
     bnd = phase_polish_banded(device, work, main_path["contigs"][0])
 
@@ -1699,6 +1945,9 @@ def run() -> dict:
         "launches_polish_cli": pol["launches"],
         "launches_default_polish_cli": dflt["launches"],
         "launches_banded_polish_cli": bnd["launches"],
+        "launches_api_substages": api_run["launches"],
+        "launches_sharded_overlap_stage": shd["launches"],
+        "launches_mesh_polish_cli": pol_mesh["launches"],
         "equal": True,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
@@ -1714,6 +1963,8 @@ def run() -> dict:
         "source": "raven_tpu_torch/csrc/consensus.cu",
         "replaces": "raven_tpu/ops/pallas_consensus.py:237",
         "launches": pol["k2_launches"],
+        "launches_mesh_votes": mv["full-NW"]["launches"]["K2"],
+        "launches_mesh_polish_cli": pol_mesh["k2_launches"],
         "equal": True,
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
@@ -1732,6 +1983,7 @@ def run() -> dict:
         "source": "raven_tpu_torch/csrc/band.cu",
         "replaces": "raven_tpu/ops/consensus_band.py:97",
         "launches": dflt["k3_launches"],
+        "launches_mesh_votes": mv["shift-banded"]["launches"]["K3"],
         "equal": True,
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
@@ -1747,6 +1999,7 @@ def run() -> dict:
         "source": "raven_tpu_torch/csrc/band.cu",
         "replaces": "raven_tpu/ops/consensus_band.py:172",
         "launches": dflt["k4_launches"],
+        "launches_mesh_votes": mv["shift-banded"]["launches"]["K4"],
         "equal": True,
         "max_abs_err": k4["max_abs_err"],
         "ms": k4["ms"],
@@ -1762,6 +2015,7 @@ def run() -> dict:
         "source": "raven_tpu_torch/csrc/banded.cu",
         "replaces": "raven_tpu/ops/consensus_device.py:163",
         "launches": bnd["k9_launches"],
+        "launches_mesh_votes": mv["banded"]["launches"]["K9"],
         "equal": True,
         "max_abs_err": k9["max_abs_err"],
         "ms": k9["ms"],
@@ -1778,6 +2032,7 @@ def run() -> dict:
         "source": "raven_tpu_torch/csrc/banded.cu",
         "replaces": "raven_tpu/ops/consensus_device.py:304",
         "launches": bnd["k10_launches"],
+        "launches_mesh_votes": mv["banded"]["launches"]["K10"],
         "equal": True,
         "max_abs_err": k10["max_abs_err"],
         "ms": k10["ms"],

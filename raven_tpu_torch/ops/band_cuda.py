@@ -231,11 +231,14 @@ def _forward_kernel(cw, t_lens, fw_sh, q_lens, r0, T: int, BW: int):
     if B == 0:
         return moves, ends, row0
     lib, fwd, _ = _fns()
-    err = fwd(
-        cw.data_ptr(), t_lens.data_ptr(), fw_sh.data_ptr(), q_lens.data_ptr(),
-        r0.data_ptr(), moves.data_ptr(), ends.data_ptr(), row0.data_ptr(), B, T,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # the tensors' card is current for the launch and its shared-memory
+    # limit, and the launch goes on that card's stream
+    with torch.cuda.device(dev):
+        err = fwd(
+            cw.data_ptr(), t_lens.data_ptr(), fw_sh.data_ptr(), q_lens.data_ptr(),
+            r0.data_ptr(), moves.data_ptr(), ends.data_ptr(), row0.data_ptr(), B, T,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     csrc.check(lib, err, "banded forward kernel launch")
     LAUNCHES["band_forward"] += 1
     return moves, ends, row0
@@ -259,11 +262,12 @@ def _walk_kernel(moves, end_scores, row0_score, fw_sh, q_lens, r0, T: int, BW: i
     if B == 0:
         return votes, ins
     lib, _, walk = _fns()
-    err = walk(
-        moves.data_ptr(), end_scores.data_ptr(), row0_score.data_ptr(), fw_sh.data_ptr(),
-        q_lens.data_ptr(), r0.data_ptr(), votes.data_ptr(), ins.data_ptr(), B, T,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        err = walk(
+            moves.data_ptr(), end_scores.data_ptr(), row0_score.data_ptr(), fw_sh.data_ptr(),
+            q_lens.data_ptr(), r0.data_ptr(), votes.data_ptr(), ins.data_ptr(), B, T,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     csrc.check(lib, err, "band walk kernel launch")
     LAUNCHES["mask_walk_votes"] += 1
     return votes, ins

@@ -287,12 +287,15 @@ def _forward_kernel(cw, t_lens, frags, q_lens, r0, r1, T: int, Q: int, BW: int):
     if B == 0:
         return moves, offs, ends, row0
     lib, fwd, _ = _fns()
-    err = fwd(
-        cw.data_ptr(), t_lens.data_ptr(), frags.data_ptr(), q_lens.data_ptr(),
-        r0.data_ptr(), r1.data_ptr(), moves.data_ptr(), offs.data_ptr(),
-        ends.data_ptr(), row0.data_ptr(), B, T, Q,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # the tensors' card is current for the launch and its shared-memory
+    # limit, and the launch goes on that card's stream
+    with torch.cuda.device(dev):
+        err = fwd(
+            cw.data_ptr(), t_lens.data_ptr(), frags.data_ptr(), q_lens.data_ptr(),
+            r0.data_ptr(), r1.data_ptr(), moves.data_ptr(), offs.data_ptr(),
+            ends.data_ptr(), row0.data_ptr(), B, T, Q,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     csrc.check(lib, err, "anchored banded forward kernel launch")
     LAUNCHES["nw_moves_banded"] += 1
     return moves, offs, ends, row0
@@ -319,12 +322,13 @@ def _walk_kernel(moves, offs, end_scores, row0_score, q_lens, frags, wts,
     if B == 0:
         return col_sym, col_w, ins_b, ins_w
     lib, _, walk = _fns()
-    err = walk(
-        moves.data_ptr(), offs.data_ptr(), end_scores.data_ptr(), row0_score.data_ptr(),
-        q_lens.data_ptr(), frags.data_ptr(), wts.data_ptr(), col_sym.data_ptr(),
-        col_w.data_ptr(), ins_b.data_ptr(), ins_w.data_ptr(), B, T, Q,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        err = walk(
+            moves.data_ptr(), offs.data_ptr(), end_scores.data_ptr(), row0_score.data_ptr(),
+            q_lens.data_ptr(), frags.data_ptr(), wts.data_ptr(), col_sym.data_ptr(),
+            col_w.data_ptr(), ins_b.data_ptr(), ins_w.data_ptr(), B, T, Q,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     csrc.check(lib, err, "anchored banded walk kernel launch")
     LAUNCHES["traceback_banded"] += 1
     return col_sym, col_w, ins_b, ins_w

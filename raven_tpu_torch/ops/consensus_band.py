@@ -19,7 +19,11 @@ gather and integer index_add_, which give the same integers.
 Shapes and grouping are raven_tpu's: windows in groups of at most `group`
 windows and `max_rows` fragment rows, windows padded to a power of two of at
 least 8, fragment rows to one of at least 256, placement rows clipped to
-[0, t_pad - 1].  The mesh-sharded loop is not ported yet (a later slice).
+[0, t_pad - 1].  With a mesh, the fragment rows are padded to a multiple
+of its size and dealt to its devices in contiguous blocks; each device
+runs K3 and K4 on its block, and each iteration's vote tables meet on the
+first device, summed there, for one rebuild whose consensus goes back to
+every device (raven_tpu's _resident_consensus_sharded).
 
 Weights are packed with the base into one uint8 (base | min(w, 63) << 2):
 quality weights cap at 63 on this engine.
@@ -32,6 +36,7 @@ import torch
 
 from raven_tpu_torch.device import resolve_device
 from raven_tpu_torch.ops import band_cuda
+from raven_tpu_torch.parallel.mesh import split_rows, sum_on_first
 
 NEG = -(1 << 20)
 MATCH, MISMATCH, GAP = 3, -5, -4
@@ -143,17 +148,32 @@ def _rebuild_device(cons_arr, cons_lens, bv, iv, cv, T: int):
 
 
 def resident_consensus(cons0, lens0, fw_sh, q_lens, r0, win_idx, T: int, BW: int, NWIN: int,
-                       ITERS: int):
+                       ITERS: int, mesh=None):
     """The refinement loop on device tensors: per iteration the forward and
     the walk votes over the whole fragment batch, the insertion
     canonicalisation and every window's rebuild, fed to the next iteration.
-    Returns the last iteration's (toks [NWIN, 2T+1] int8, lens [NWIN])."""
+    With a mesh, the fragment rows (whose count must be a multiple of its
+    size) are dealt over its devices, the votes summed on its first device,
+    where cons0 and lens0 must lie.  Returns the last iteration's (toks
+    [NWIN, 2T+1] int8, lens [NWIN])."""
     if ITERS < 1:
         raise ValueError(f"ITERS must be at least 1, got {ITERS}")
+    rows = (fw_sh, q_lens, r0, win_idx)
+    if mesh is None:
+        shards = [rows]
+    else:
+        shards = [
+            tuple(a[sl].to(dev) for a in rows)
+            for sl, dev in zip(split_rows(q_lens.shape[0], mesh.size), mesh.devices)
+        ]
     cons, lens = cons0, lens0
     for _ in range(ITERS):
         runs = _run_map_device(cons, T)
-        bv, ir, cv = band_votes_kernel(cons, lens, fw_sh, q_lens, r0, win_idx, T, BW, NWIN)
+        bv, ir, cv = sum_on_first(
+            (band_votes_kernel(cons.to(f.device), lens.to(f.device), f, q, r, wi, T, BW, NWIN)
+             for f, q, r, wi in shards),
+            cons.device,
+        )
         iv = canonicalize_ins(ir, runs, T)
         toks, toks_len = _rebuild_device(cons, lens, bv, iv, cv, T)
         cons = toks[:, :T].contiguous()
@@ -177,10 +197,10 @@ def _upload(a: np.ndarray, device: torch.device):
     return t.to(device)
 
 
-def _prepare_group(grp, t_pad: int, q_pad: int, bw: int):
+def _prepare_group(grp, t_pad: int, q_pad: int, bw: int, n_dev: int = 1):
     """Host prep of one group of windows: ((cons0 [NWIN, t_pad], lens0
     [NWIN], fw_sh [B_pad, t_pad + bw + 1], q_lens, r0, win_of [B_pad]) as
-    numpy arrays, NWIN)."""
+    numpy arrays, NWIN); B_pad is a multiple of `n_dev`."""
     frag_rows: list = []
     weight_rows: list = []
     win_of: list = []
@@ -197,7 +217,7 @@ def _prepare_group(grp, t_pad: int, q_pad: int, bw: int):
             r0_list.append(int(spans[fi][0]) if spans is not None else 0)
     B_total = len(frag_rows)
     NWIN = _pow2(len(grp), 8)
-    B_pad = _pow2(max(B_total, 1), 256)
+    B_pad = -(-_pow2(max(B_total, 1), 256) // n_dev) * n_dev
     r0 = np.zeros(B_pad, np.int32)
     r0[:B_total] = np.clip(r0_list, 0, t_pad - 1)
     fw_sh = np.zeros((B_pad, t_pad + bw + 1), np.uint8)
@@ -230,7 +250,9 @@ def band_window_consensus(
     device=None,
 ):
     """Batched window consensus on the shift-banded resident engine, on
-    `device` (CUDA by default).
+    `device` (CUDA by default), or over the devices of `mesh`
+    (raven_tpu_torch.parallel.mesh.Mesh, the first device holding each
+    group's consensus).
 
     windows: [(backbone, fragments, weights-or-None[, spans])]; returns one
     consensus array per window, token for token what raven_tpu's
@@ -239,12 +261,8 @@ def band_window_consensus(
     loop is queued on the device in turn and the tokens are collected once
     every group is queued.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded shift-banded consensus is not ported yet (a later "
-            "slice of the port); this slice runs it on one device"
-        )
-    device = resolve_device(device)
+    device = mesh.first if mesh is not None else resolve_device(device)
+    n_dev = mesh.size if mesh is not None else 1
     n_win = len(windows)
     windows = [
         (w[0], w[1], w[2], w[3] if len(w) > 3 else None) for w in windows
@@ -264,10 +282,10 @@ def band_window_consensus(
             rows += r
             wi += 1
         grp = windows[lo:wi]
-        arrays, NWIN = _prepare_group(grp, t_pad, q_pad, bw)
+        arrays, NWIN = _prepare_group(grp, t_pad, q_pad, bw, n_dev)
         toks, lens = resident_consensus(
             *(_upload(a, device) for a in arrays),
-            t_pad, bw, NWIN, int(iterations),
+            t_pad, bw, NWIN, int(iterations), mesh,
         )
         pending.append((lo, len(grp), toks, lens))
 

@@ -209,12 +209,15 @@ def _kernel(cw, tlens, frags, qlens, wts):
             "and 4Q + 3T + 8 <= 49152)"
         )
     moves = torch.empty(n_words, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(
-        cw.data_ptr(), tlens.data_ptr(), frags.data_ptr(), qlens.data_ptr(),
-        wts.data_ptr(), moves.data_ptr(), col_sym.data_ptr(), col_w.data_ptr(),
-        ins_b.data_ptr(), ins_w.data_ptr(), B, T, Q, stream,
-    )
+    # the tensors' card is current for the launch and its shared-memory
+    # limit, and the launch goes on that card's stream
+    with torch.cuda.device(dev):
+        err = fn(
+            cw.data_ptr(), tlens.data_ptr(), frags.data_ptr(), qlens.data_ptr(),
+            wts.data_ptr(), moves.data_ptr(), col_sym.data_ptr(), col_w.data_ptr(),
+            ins_b.data_ptr(), ins_w.data_ptr(), B, T, Q,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     csrc.check(lib, err, "window consensus kernel launch")
     LAUNCHES += 1
     return col_sym, col_w, ins_b, ins_w

@@ -13,8 +13,8 @@ window (kernels K9 and K10, ops/banded_cuda.py).
 Shapes are those of raven_tpu: consensus rows padded to t_pad, fragments
 to q_pad, fragment rows to whole chunks, windows to a power of two.  The
 host helpers homopolymer_run_map, consensus_votes and rebuild_consensus
-are copies.  The mesh-sharded votes are not ported yet (a later slice);
-asking for them raises.
+are copies.  With a mesh the fragment chunks are dealt over its devices
+and the vote tables summed on the first (raven_tpu's mesh-sharded votes).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 from raven_tpu_torch.device import resolve_device
 from raven_tpu_torch.ops.banded_cuda import check_kernel_shape, fused_votes_banded
 from raven_tpu_torch.ops.consensus_cuda import fused_votes
+from raven_tpu_torch.parallel.mesh import split_rows, sum_on_first
 
 
 def _pow2_of(v: int, lo: int = 128) -> int:
@@ -45,7 +46,8 @@ def device_window_consensus(
     device=None,
 ) -> list[np.ndarray]:
     """Batched consensus for many windows at once, on `device` (CUDA by
-    default).
+    default), or over the devices of `mesh` (raven_tpu.parallel.mesh's
+    counterpart, raven_tpu_torch.parallel.mesh.Mesh).
 
     windows: [(backbone, fragments, weights-or-None[, spans])], spans one
     (r0, r1) placement on the backbone a fragment, (0, len(backbone)) when
@@ -54,17 +56,16 @@ def device_window_consensus(
     chunk of `chunk` fragment rows through fused_votes (banded: through
     fused_votes_banded, with the anchors rescaled to the current consensus
     lengths) and sums the tables, as raven_tpu's fused_votes_scan_kernel
-    (fused_votes_banded_scan_kernel) does.
+    (fused_votes_banded_scan_kernel) does.  With a mesh, the chunks are
+    padded to a multiple of its size and dealt to its devices in contiguous
+    blocks; each device sums its own chunks' tables, and the tables meet
+    on the first device, summed there (raven_tpu's _votes_step_sharded:
+    integer sums, so the consensus is the one device's, bit for bit).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded votes are not ported yet (a later slice of the "
-            "port); this slice runs the window consensus on one device"
-        )
-    device = resolve_device(device)
+    devices = mesh.devices if mesh is not None else (resolve_device(device),)
     # the anchored band's width (lane-aligned)
     BW = min(256, _pow2_of(q_pad))
-    if banded and device.type == "cuda":
+    if banded and any(d.type == "cuda" for d in devices):
         try:
             check_kernel_shape(t_pad, q_pad, BW)
         except ValueError as e:
@@ -74,7 +75,7 @@ def device_window_consensus(
     n_win = len(windows)
     cons = [np.asarray(w[0], np.uint8) for w in windows]
     frags_arr, w_arr, q_lens, win_of_arr, span0, span1, B_total = flatten_fragments(
-        windows, q_pad, chunk
+        windows, q_pad, chunk * len(devices)
     )
     if B_total == 0:
         return cons
@@ -85,44 +86,53 @@ def device_window_consensus(
     n_frags = np.bincount(win_of_arr[:B_total], minlength=n_win)
     bb_lens = [len(w[0]) for w in windows]
 
-    # fragments and weights do not change between iterations: on the
-    # device once
-    frags_dev = torch.from_numpy(frags_arr).to(device)
-    wts_dev = torch.from_numpy(w_arr).to(device)
-    qlens_dev = torch.from_numpy(q_lens).to(device)
-    winof_dev = torch.from_numpy(win_of_arr).to(device)
+    # fragments and weights do not change between iterations: on each
+    # device once, its block of rows
+    blocks = split_rows(B_pad, len(devices))
+    shards = [
+        (dev, rows, *(
+            torch.from_numpy(a[rows]).to(dev)
+            for a in (frags_arr, w_arr, q_lens, win_of_arr)
+        ))
+        for dev, rows in zip(devices, blocks)
+    ]
 
     for _ in range(iterations):
         cons_arr, cons_lens = pad_consensus(cons, t_pad, NWIN)
         cons_runs = homopolymer_run_map(cons_arr, cons_lens)
-        cons_dev = torch.from_numpy(cons_arr).to(device)
-        clens_dev = torch.from_numpy(cons_lens).to(device)
-        cruns_dev = torch.from_numpy(cons_runs).to(device)
-        if banded:
+        if banded or mesh is not None:
+            # raven_tpu rescales the anchors whenever it has a mesh; only
+            # the banded kernels read them
             r0, r1 = rescale_anchors(span0, span1, win_of_arr, B_total, cons_lens, bb_lens)
-            r0_dev = torch.from_numpy(r0).to(device)
-            r1_dev = torch.from_numpy(r1).to(device)
-
-        bv = torch.zeros((NWIN, t_pad, 5), dtype=torch.int32, device=device)
-        iv = torch.zeros((NWIN, t_pad + 1, 4), dtype=torch.int32, device=device)
-        cv = torch.zeros((NWIN, t_pad), dtype=torch.int32, device=device)
-        for c0 in range(0, B_pad, chunk):
-            sl = slice(c0, c0 + chunk)
+        tables = []
+        for dev, rows, frags_dev, wts_dev, qlens_dev, winof_dev in shards:
+            cons_dev, clens_dev, cruns_dev = (
+                torch.from_numpy(a).to(dev) for a in (cons_arr, cons_lens, cons_runs)
+            )
             if banded:
-                b_, i_, c_ = fused_votes_banded(
-                    cons_dev, clens_dev, cruns_dev, frags_dev[sl],
-                    qlens_dev[sl], wts_dev[sl], winof_dev[sl], r0_dev[sl],
-                    r1_dev[sl], t_pad, q_pad, BW, NWIN,
-                )
-            else:
-                b_, i_, c_ = fused_votes(
-                    cons_dev, clens_dev, cruns_dev, frags_dev[sl],
-                    qlens_dev[sl], wts_dev[sl], winof_dev[sl], t_pad, q_pad,
-                    NWIN,
-                )
-            bv += b_
-            iv += i_
-            cv += c_
+                r0_dev, r1_dev = (torch.from_numpy(a[rows]).to(dev) for a in (r0, r1))
+            bv = torch.zeros((NWIN, t_pad, 5), dtype=torch.int32, device=dev)
+            iv = torch.zeros((NWIN, t_pad + 1, 4), dtype=torch.int32, device=dev)
+            cv = torch.zeros((NWIN, t_pad), dtype=torch.int32, device=dev)
+            for c0 in range(0, rows.stop - rows.start, chunk):
+                sl = slice(c0, c0 + chunk)
+                if banded:
+                    b_, i_, c_ = fused_votes_banded(
+                        cons_dev, clens_dev, cruns_dev, frags_dev[sl],
+                        qlens_dev[sl], wts_dev[sl], winof_dev[sl], r0_dev[sl],
+                        r1_dev[sl], t_pad, q_pad, BW, NWIN,
+                    )
+                else:
+                    b_, i_, c_ = fused_votes(
+                        cons_dev, clens_dev, cruns_dev, frags_dev[sl],
+                        qlens_dev[sl], wts_dev[sl], winof_dev[sl], t_pad, q_pad,
+                        NWIN,
+                    )
+                bv += b_
+                iv += i_
+                cv += c_
+            tables.append((bv, iv, cv))
+        bv, iv, cv = sum_on_first(tables, devices[0])
         base_votes = bv.cpu().numpy().astype(np.int64)
         ins_votes = iv.cpu().numpy().astype(np.int64)
         cover = cv.cpu().numpy().astype(np.int64)

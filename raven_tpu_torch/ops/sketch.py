@@ -61,6 +61,14 @@ def align_row_starts(segs: np.ndarray, align: int = CHUNK_ALIGN):
     return starts_un + np.cumsum(pad_at), total + off
 
 
+def segments_per_read(lengths: np.ndarray, k: int, w: int, width: int = 2048) -> np.ndarray:
+    """The halo'd segment rows each read of `lengths` tiles into (0 for a
+    read too short to hold one (k, w) window)."""
+    stride = width - ((k - 1) + 2 * (w - 1))
+    n = np.asarray(lengths, dtype=np.int64)
+    return np.where(n < k + w - 1, 0, 1 + np.maximum(0, -(-(n - width) // stride)))
+
+
 def segment_reads(
     readset, ids: np.ndarray, k: int, w: int, width: int = 2048
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -142,12 +150,7 @@ def segment_reads_packed(
 
         lengths = np.ascontiguousarray(readset.lengths, dtype=np.int64)
         starts64 = np.ascontiguousarray(starts, dtype=np.int64)
-        n = lengths[ids]
-        segs = np.where(
-            n < k + w - 1,
-            0,
-            1 + np.maximum(0, -(-(n - width) // stride)),
-        ).astype(np.int64)
+        segs = segments_per_read(lengths[ids], k, w, width)
         row_starts, S = align_row_starts(segs)
         row_off = np.empty(ids.size + 1, dtype=np.int64)
         row_off[: ids.size] = row_starts

@@ -126,11 +126,14 @@ def _kernel(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int):
     if S == 0:
         return h, strand, keep
     lib, fn = _fns()
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
-    err = fn(
-        codes.data_ptr(), lengths.data_ptr(), h.data_ptr(),
-        strand.data_ptr(), keep.data_ptr(), S, L, k, w, stream,
-    )
+    # the tensors' card is current for the launch, which goes on that
+    # card's stream
+    with torch.cuda.device(codes.device):
+        err = fn(
+            codes.data_ptr(), lengths.data_ptr(), h.data_ptr(),
+            strand.data_ptr(), keep.data_ptr(), S, L, k, w,
+            torch.cuda.current_stream(codes.device).cuda_stream,
+        )
     csrc.check(lib, err, "segment sketch kernel launch")
     LAUNCHES += 1
     return h, strand, keep

@@ -83,12 +83,29 @@ def _quarter_at_least(n: int, lo: int, hi: int) -> int:
     return max(lo, min(c, hi))
 
 
+def _capacity(n: int) -> int:
+    """The reference's padded index length for `n` entries."""
+    return _quarter_at_least(max(int(n), 1), 1 << 12, MAX_ENTRIES)
+
+
+def range_splits(n: int) -> list[int]:
+    """The hashes that cut the hash space into `n` ranges."""
+    return [HASH_SPACE * h // n for h in range(1, n)]
+
+
+def range_cuts(key: torch.Tensor, splits) -> list[int]:
+    """Where the key-sorted column `key` crosses each of the hashes
+    `splits`: n + 1 offsets, one range between each two."""
+    at = torch.searchsorted(key, torch.tensor(splits, dtype=key.dtype, device=key.device))
+    return [0, *at.tolist(), key.numel()]
+
+
 def _build_columns(readset, ids, k, w, minhash, with_flags, device, splits=()):
     """The sketch of `ids` as key-sorted index columns: (key, rid, packed
-    int32 [N], need_flags, capacities), or None past a capacity limit.
-    The ascending hashes `splits` cut the hash space into ranges (a part
-    each); each range may hold at most MAX_ENTRIES entries before the
-    minhash cut, and `capacities` holds each one's padded length."""
+    int32 [N], need_flags, counts), or None past a capacity limit.  The
+    ascending hashes `splits` cut the hash space into ranges (a part
+    each); `counts` holds each range's entries before the minhash cut, at
+    most MAX_ENTRIES."""
     if 2 * k > 30:
         return None
     device = torch.device(device)
@@ -129,7 +146,6 @@ def _build_columns(readset, ids, k, w, minhash, with_flags, device, splits=()):
     ).tolist()
     if max(counts) > MAX_ENTRIES:
         return None
-    capacities = [_quarter_at_least(max(n, 1), 1 << 12, MAX_ENTRIES) for n in counts]
 
     need_flags = bool(minhash or with_flags)
     packed_col = (pos1 >> 1) | ((pos1 & 1) << _STRAND_BIT)
@@ -155,7 +171,7 @@ def _build_columns(readset, ids, k, w, minhash, with_flags, device, splits=()):
         key[order].to(torch.int32),
         rid[order].to(torch.int32),
         packed_col[order].to(torch.int32),
-        need_flags, capacities,
+        need_flags, counts,
     )
 
 
@@ -192,8 +208,8 @@ class DeviceIndex:
         cols = _build_columns(readset, ids, k, w, minhash, with_flags, device)
         if cols is None:
             return None
-        key, rid, packed, need_flags, (capacity,) = cols
-        return cls(key, rid, packed, need_flags, k, w, capacity)
+        key, rid, packed, need_flags, (count,) = cols
+        return cls(key, rid, packed, need_flags, k, w, _capacity(count))
     @classmethod
     def from_host(cls, key, rid, packed, n_entries, has_flags, k, w, device):
         """Wrap numpy index columns (key-sorted, as a JAX-built
@@ -411,40 +427,42 @@ class PartitionedIndex:
     def build(cls, readset, ids, k, w, minhash, with_flags, device, n_parts):
         if n_parts < 2:
             return None
-        splits = [HASH_SPACE * h // n_parts for h in range(1, n_parts)]
+        splits = range_splits(n_parts)
         cols = _build_columns(readset, ids, k, w, minhash, with_flags, device, splits)
         if cols is None:
             return None
-        key, rid, packed, need_flags, capacities = cols
-        cuts = [0, *torch.searchsorted(
-            key, torch.tensor(splits, dtype=key.dtype, device=key.device)
-        ).tolist(), key.numel()]
+        key, rid, packed, need_flags, counts = cols
+        cuts = range_cuts(key, splits)
         parts = [
-            DeviceIndex(key[a:b], rid[a:b], packed[a:b], need_flags, k, w, cap)
-            for a, b, cap in zip(cuts, cuts[1:], capacities)
+            DeviceIndex(key[a:b], rid[a:b], packed[a:b], need_flags, k, w, _capacity(c))
+            for a, b, c in zip(cuts, cuts[1:], counts)
         ]
         return cls(parts, k, w, need_flags)
 
     def occurrence_for(self, frequency: float) -> int:
-        """ram Filter over the run lengths of every part (DeviceIndex's)."""
+        """ram Filter over the run lengths of every part (DeviceIndex's),
+        gathered on the first part's device."""
         if frequency <= 0 or self.n_entries == 0:
             return np.iinfo(np.int64).max
         for p in self.parts:
             p._ensure_counts()
-        run_len = torch.cat([p._run_len for p in self.parts])
+        dev = self.parts[0].device
+        run_len = torch.cat([p._run_len.to(dev) for p in self.parts])
         target = min(int((1.0 - frequency) * run_len.numel()), run_len.numel() - 1)
         return int(torch.sort(run_len).values[target])
 
     def distance_join(self, occurrence: int, batch: np.ndarray, need_flags: bool,
                       filtered_out: dict | None = None, chain_k: int | None = None):
-        """DeviceIndex.distance_join over the parts: their match columns
-        concatenated on the device, then chained or returned once."""
+        """DeviceIndex.distance_join over the parts: each joins on its own
+        device, and their match columns meet on the first part's device,
+        concatenated, to be chained or returned once."""
+        dev = self.parts[0].device
         parts = []
         for p in self.parts:
             cols = p.join_columns(occurrence, batch, need_flags, filtered_out)
             if cols is None:
                 return None
-            parts.append(cols)
+            parts.append([c.to(dev, non_blocking=dev.type == "cuda") for c in cols])
         return _finish_join(tuple(torch.cat(c) for c in zip(*parts)), chain_k)
 
     def to_host(self):

@@ -5,12 +5,16 @@ The torch port of raven_tpu/overlap/engine.py, the replacement for the
 62, 363, 372-381; assemble.cc:753-780).  The index is a plain sorted
 struct-of-arrays (hash-sorted), so lookup is binary search
 (np.searchsorted) instead of a pointer hash table and candidate expansion
-is a vectorized gather.  Inputs of DEVICE_MIN_BASES or more build the
-device-resident index (overlap/device_index.py) on the engine's device,
-partitioned by hash range above one DeviceIndex's entries; smaller ones
-take the host path.  Where the device path cannot take an
-input (a capacity limit), the engine says so on stderr, counts it in
-`MinimizerIndex.host_declines` and runs the host path.
+is a vectorized gather.  With a mesh (MinimizerIndex.MESH, or every card
+when the engine's device is CUDA and more than one card is visible) the
+index is hash-range-sharded over it (parallel/sharded_index.py), at any
+input size, as raven_tpu's is.  Otherwise inputs of DEVICE_MIN_BASES or
+more build the device-resident index (overlap/device_index.py) on the
+engine's device, partitioned by hash range above one DeviceIndex's
+entries; smaller ones take the host path.  Where a device path cannot
+take an input (a capacity limit), the engine says so on stderr, counts it
+in `MinimizerIndex.host_declines` and takes the next path: the single
+device index after the sharded one, the host after that.
 
 API mirrors the reference engine:
   minimize(readset, ids, minhash)  ~ ram Minimize  (construct.cc:42)
@@ -34,6 +38,7 @@ from raven_tpu_torch.overlap.device_index import (
     PartitionedIndex,
 )
 from raven_tpu_torch.overlap.minimizer import minimize_read, minimize_reads
+from raven_tpu_torch.parallel.mesh import default_mesh
 from raven_tpu_torch.overlap.types import OVERLAP_DTYPE
 
 
@@ -64,6 +69,11 @@ class MinimizerIndex:
     # DeviceIndex's entries, with a part per PART_TARGET entries; a count
     # of 2 or more forces it (raven_tpu's RAVEN_TPU_INDEX_PARTS)
     INDEX_PARTS = 0
+    # the mesh of the hash-range-sharded index: None takes every card when
+    # the engine's device is CUDA and more than one card is visible
+    # (raven_tpu's automatic multi-device path); a Mesh forces it
+    # (raven_tpu's RAVEN_TPU_SHARDED_MAP=1)
+    MESH = None
     # device-path declines to the host path, over every engine in the
     # process (a run reads it to show the device path took everything)
     host_declines = 0
@@ -138,11 +148,23 @@ class MinimizerIndex:
         )
 
     def _device_build(self, readset, ids, minhash, with_query_flags) -> bool:
-        """Build the index device-resident, partitioned above MAX_ENTRIES
-        entries; returns False to fall through to the host build (inputs
-        under DEVICE_MIN_BASES, or a decline)."""
+        """Build the index device-resident: sharded over a mesh when there
+        is one, else partitioned above MAX_ENTRIES entries; returns False
+        to fall through to the host build (inputs under DEVICE_MIN_BASES,
+        or a decline)."""
         if ids.size == 0:
             return False
+        mesh = self.MESH if self.MESH is not None else default_mesh(self.device)
+        if mesh is not None and 2 * self.k <= 30:
+            from raven_tpu_torch.parallel.sharded_index import ShardedIndex
+
+            self._device = ShardedIndex.build(
+                readset, ids, self.k, self.w, minhash, with_query_flags, mesh
+            )
+            if self._device is not None:
+                self._drop_host_columns()
+                return True
+            type(self).host_declines += 1  # ShardedIndex said why
         total = int(readset.lengths[np.asarray(ids, np.int64)].sum())
         if total < self.DEVICE_MIN_BASES:
             return False
@@ -173,14 +195,18 @@ class MinimizerIndex:
                 "index capacity"
             )
             return False
-        # host columns are materialized lazily (only non-self-join callers
-        # need them; the construct pipeline never does)
+        self._drop_host_columns()
+        return True
+
+    def _drop_host_columns(self) -> None:
+        """The index is on the device: its host columns are materialized
+        lazily (only non-self-join callers need them; the construct
+        pipeline never does)."""
         self._hashes = None
         self._ids = None
         self._pos = None
         self._strand = None
         self._qflag = None
-        return True
 
     def _materialize_host(self) -> None:
         """Transfer the device-built index into the host columns (fallback

@@ -1,13 +1,16 @@
 """Racon-equivalent consensus polisher.
 
-A copy of raven_tpu/polish/polisher.py with four changes: the mapping
+A copy of raven_tpu/polish/polisher.py with five changes: the mapping
 index is the port's engine on the polisher's device; the crossing DP runs
 on that device through ops/dp_device.py unless it is the CPU (and raises
 on failure); the consensus routes by DeviceCfg alone: the full-NW device
-consensus when poa_batches > 0, NotImplementedError for the anchored banded
-engine (banded_alignment, not ported yet), else the shift-banded device
-consensus (ops/consensus_band.py, raven_tpu's default engine) whenever the
-device is asked for; the host fork pool checks whether CUDA is initialised.
+consensus when poa_batches > 0, anchored-banded with banded_alignment,
+else the shift-banded device consensus (ops/consensus_band.py, raven_tpu's
+default engine) whenever the device is asked for; the device consensus
+shards its votes over a mesh (Polisher.MESH, or every card when the
+device is CUDA and more than one card is visible) where raven_tpu reads
+RAVEN_TPU_SHARDED_POLISH; the host fork pool checks whether CUDA is
+initialised.
 
 Reference behaviour being reproduced (use site RavenLib/src/polish.cc:43-51
 plus the racon library dependency it drives):
@@ -40,6 +43,7 @@ from raven_tpu_torch.overlap.engine import MinimizerIndex
 from raven_tpu_torch.overlap.types import overlap_length
 from raven_tpu_torch.ops.align_dp import batched_boundary_crossings
 from raven_tpu_torch.ops.poa import poa_consensus
+from raven_tpu_torch.parallel.mesh import default_mesh
 
 MAP_K = 15  # read->contig mapping k-mer length (racon's ram default)
 WINDOW_LEN = 500  # polish.cc:44 (racon window_length)
@@ -79,6 +83,12 @@ class _SeqView:
 
 
 class Polisher:
+    # the mesh of the device consensus's votes: None takes every card when
+    # the polisher's device is CUDA and more than one card is visible
+    # (raven_tpu's automatic multi-device polish); a Mesh forces it
+    # (raven_tpu's RAVEN_TPU_SHARDED_POLISH=1)
+    MESH = None
+
     def __init__(
         self,
         quality_threshold: float = 0.0,
@@ -419,7 +429,8 @@ class Polisher:
         CUDA-POA flags) select raven_tpu's legacy engine: the full-NW
         window consensus, anchored-banded with banded_alignment, in chunks
         of poa_batches * 256 fragment rows (2048 without poa_batches);
-        without either, the shift-banded consensus."""
+        without either, the shift-banded consensus.  Either shards its
+        votes over the mesh (MESH, or default_mesh)."""
         use_dev = self.use_device_consensus
         dc = self.device_cfg
         if dc is not None and dc.poa_batches > 0:
@@ -434,6 +445,7 @@ class Polisher:
                 for _, _, backbone, frag_codes, weights, spans in jobs
             ]
             self.last_engine = "device"
+            mesh = self.MESH if self.MESH is not None else default_mesh(self.device)
             if dc is not None and (dc.poa_batches > 0 or dc.banded_alignment):
                 from raven_tpu_torch.ops.consensus_device import (
                     device_window_consensus,
@@ -444,11 +456,13 @@ class Polisher:
                     kwargs["chunk"] = 256 * dc.poa_batches
                 return device_window_consensus(
                     windows, iterations=4, banded=dc.banded_alignment,
-                    device=self.device, **kwargs,
+                    mesh=mesh, device=self.device, **kwargs,
                 )
             from raven_tpu_torch.ops.consensus_band import band_window_consensus
 
-            return band_window_consensus(windows, iterations=4, device=self.device)
+            return band_window_consensus(
+                windows, iterations=4, mesh=mesh, device=self.device
+            )
         self.last_engine = "host"
         return self._run_poa_host(jobs)
 

@@ -259,8 +259,13 @@ def test_band_window_consensus_edges_match_jax():
         assert np.array_equal(a, b)
         assert np.array_equal(b, w)
     assert np.array_equal(one[2], bb[:60])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tb.band_window_consensus(windows, mesh=object(), device="cpu")
+    # the mesh-sharded loop runs: 2 virtual CPU devices give the one's
+    from raven_tpu_torch.parallel.mesh import Mesh
+
+    two = tb.band_window_consensus(windows, iterations=2, t_pad=128, bw=384, group=2,
+                                   mesh=Mesh(["cpu"] * 2))
+    for a, b in zip(one, two):
+        assert np.array_equal(a, b)
 
 
 def test_cpu_tensors_launch_no_kernel():

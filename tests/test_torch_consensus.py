@@ -263,8 +263,19 @@ def test_device_window_consensus_matches_jax():
 
 
 def test_unported_engines_raise():
-    windows = [(np.zeros(10, np.uint8), [np.zeros(10, np.uint8)], None)]
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """No engine is left unported: the mesh-sharded votes run (on a
+    virtual 2-device CPU mesh, the one device's consensus), and what is
+    not a mesh is refused."""
+    from raven_tpu_torch.parallel.mesh import Mesh
+
+    rng = np.random.default_rng(29)
+    windows = _windows(rng, 4, 120, 6)
+    kw = dict(iterations=2, t_pad=128, q_pad=160, chunk=16)
+    one = tcd.device_window_consensus(windows, device="cpu", **kw)
+    two = tcd.device_window_consensus(windows, mesh=Mesh(["cpu"] * 2), **kw)
+    for a, b in zip(one, two):
+        assert np.array_equal(a, b)
+    with pytest.raises(AttributeError):
         tcd.device_window_consensus(windows, mesh=object(), device="cpu")
 
 

@@ -2,8 +2,9 @@
 package: boundary_crossings_device on the CPU against raven_tpu's
 jax_dp.boundary_crossings_device and align_dp.batched_boundary_crossings,
 exactly, on random inter-anchor segments from each of the polisher's four
-segment-size buckets; plus the copied host modules (align_dp, the native
-crossings and POA) against raven_tpu's."""
+segment-size buckets; infix_align_device against raven_tpu's and
+align_dp.batched_infix_align; plus the copied host modules (align_dp, the
+native crossings and POA) against raven_tpu's."""
 
 import numpy as np
 import pytest
@@ -101,3 +102,41 @@ def test_host_copies_match():
             tpoa.poa_consensus(backbone, frags, w), jpoa.poa_consensus(backbone, frags, w)
         )
     assert tpoa._native_poa() is not None
+
+
+def _infix_case(rng, B=8):
+    """tests/test_align_dp.py:53's inputs: targets of 20-120 bases planted,
+    with a substitution, in queries of 50-250."""
+    t_lens = rng.integers(20, 120, B)
+    q_lens = rng.integers(50, 250, B)
+    T, Q = int(t_lens.max()), int(q_lens.max())
+    t = rng.integers(0, 4, (B, T)).astype(np.uint8)
+    q = rng.integers(0, 4, (B, Q)).astype(np.uint8)
+    for b in range(B):
+        tl, ql = int(t_lens[b]), int(q_lens[b])
+        s = int(rng.integers(0, max(1, ql - tl)))
+        seg = t[b, :tl].copy()
+        if seg.size > 10:
+            seg[5] = (seg[5] + 1) % 4
+        q[b, s : s + min(seg.size, ql - s)] = seg[: min(seg.size, ql - s)]
+    return t, t_lens, q, q_lens
+
+
+@pytest.mark.parametrize("edge", ["planted", "empty-targets"])
+def test_infix_align_device_matches_jax(edge):
+    """infix_align_device against jax_dp.infix_align_device and
+    align_dp.batched_infix_align, bit for bit; with some t_lens of 0 (the
+    whole query free: distance 0 at column 0)."""
+    rng = np.random.default_rng(53)
+    t, t_lens, q, q_lens = _infix_case(rng)
+    if edge == "empty-targets":
+        t_lens[[0, 5]] = 0
+    got = dp_device.infix_align_device(t, t_lens, q, q_lens, device="cpu")
+    want = jax_dp.infix_align_device(t, t_lens, q, q_lens)
+    host = jad.batched_infix_align(t, t_lens, q, q_lens)
+    for g, w, h in zip(got, want, host):
+        assert g.dtype == np.int64
+        assert np.array_equal(g, w)
+        assert np.array_equal(g, h)
+    if edge == "empty-targets":
+        assert got[0][0] == got[2][0] == 0
