@@ -32,6 +32,28 @@ failure:
      occurrence, K1 launched, no decline, its steady wall and peak device
      memory beside the single index's (and once on every card when there
      are 2 or more);
+ 3c. the multi-process path (raven_tpu_torch.parallel.distributed and
+     parallel/worker.py): ranks of `python -m raven_tpu_torch.parallel.worker`
+     in child processes on overlap-115M's reads, written once to the work
+     directory: (a) one rank on NCCL with a virtual mesh of 4 shards on
+     cuda:0, whose index goes through NCCL's all-to-all, all-gather and
+     all-reduce: phase 3's digest and occurrence, raven_tpu's candidate
+     count equal to the host oracle's, and the three engines' votes on
+     phase 8b's window bank bit-equal to one device; (b) two ranks on gloo,
+     both on cuda:0 with 2 shards each (NCCL refuses two ranks on one
+     card): the same on both ranks, and then the construct and assemble of
+     phase 4's reads, whose GFA on both ranks must be phase 4b's `-p 0
+     -F` GFA byte for byte; each run's steady wall beside phase 3b's, its
+     collectives' bytes and, in a pass of its own with the device
+     synchronised around each collective, their time, each rank's peak
+     device memory and K1, K2, K3/K4 and K9/K10 launches (two processes
+     sharing one card over gloo, not a multi-card wall);
+ 3d. the engine's device-sketch route (MinimizerIndex.DEVICE_SKETCH, on by
+     default): on phase 4's reads, with the partitioned index's ceiling
+     lowered to 0 for the run so the engine declines the device index,
+     the host index's sketch runs K1 on the card; the index must equal the
+     host sketch's (DEVICE_SKETCH off) column for column, with one decline
+     and K1 launched; both builds' walls and both sketches' walls alone;
   4. the main path: `raven_tpu_torch.cli.main([reads, "-p", "0", ...])` on
      a 1 Mb genome at 30x with indels, which must give one contig of at
      least 0.97 of the genome with every overlap index built by K1; then
@@ -753,6 +775,218 @@ def phase_sharded(readset, device, ov):
         out["cards_steady_s"] = wall
         log(f"sharded index over {cards}: {wall:.3f} s, the single index's digest")
     return out
+
+
+def write_readset(readset, path: str) -> str:
+    """`readset` as FASTA at `path` (the multi-process ranks load it)."""
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    with open(path, "wb") as fh:
+        for i in range(len(readset)):
+            fh.write(b">r%d\n" % i + lut[readset.sequence(i)].tobytes() + b"\n")
+    return path
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(roles: str, nproc: int, backend: str, shards: int, extra, timeout=300):
+    """`nproc` ranks of raven_tpu_torch.parallel.worker on cuda:0, started
+    together: each rank's {role: its JSON line}.  A rank that exits
+    non-zero or outlives `timeout` (every rank is then killed) fails the
+    run.  gloo and NCCL are told to bind the loopback interface (a setting
+    of the libraries, in the children's environment only)."""
+    init = f"tcp://127.0.0.1:{free_port()}"
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo",
+               PYTHONPATH=os.pathsep.join(filter(None, [REPO, os.environ.get("PYTHONPATH")])))
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "raven_tpu_torch.parallel.worker", roles, str(r),
+             str(nproc), init, backend, "cuda:0", str(shards), "--timeout", "240", *extra],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for r in range(nproc)
+    ]
+    deadline = time.perf_counter() + timeout
+    results = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"{backend} rank {r} of {nproc} ({roles}) ran past "
+                                   f"{timeout} s") from None
+            tail = "\n".join(ln for ln in err.splitlines()
+                             if "::Graph::" not in ln and "hostname" not in ln)[-3000:]
+            require(p.returncode == 0,
+                    f"{backend} rank {r} of {nproc} ({roles}) exited {p.returncode}:\n{tail}")
+            recs = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+            results.append({rec["role"]: rec for rec in recs})
+            require(set(results[-1]) == set(roles.split(",")),
+                    f"{backend} rank {r} printed {sorted(results[-1])}, not {roles}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
+
+
+def check_rank(tag: str, rank: dict, ov: dict) -> None:
+    """A rank's overlap and candidates roles: phase 3's digest and
+    occurrence, no decline, K1 launched, the candidate count of the host
+    oracle, each engine's votes bit-equal to one device, its kernels
+    launched."""
+    o, c = rank["overlap"], rank["candidates"]
+    require(o["sharded"] and o["digest"] == ov["digest"] and o["occ"] == ov["occ"],
+            f"{tag}: the overlaps or the occurrence differ from phase 3's")
+    require(o["steady_equal"], f"{tag}: the steady pass differs from the cold one")
+    require(o["declines"] == 0, f"{tag}: {o['declines']} declines")
+    require(o["k1"] > 0 and c["step_k1"] > 0, f"{tag}: K1 launched no time")
+    require(c["pairs"] == c["oracle"], f"{tag}: {c['pairs']} candidate pairs, the host "
+            f"oracle {c['oracle']}")
+    kernels = {"full-NW": ("K2",), "banded": ("K9", "K10"), "shift-banded": ("K3", "K4")}
+    for name, ks in kernels.items():
+        v = c["votes"][name]
+        require(v["equal"], f"{tag}: the {name} votes differ from one device's")
+        require(all(v["launches"][k] > 0 for k in ks),
+                f"{tag}: the {name} votes launched {ks} no time: {v['launches']}")
+
+
+def rank_launches(rank: dict) -> dict:
+    """K1-K10 launches over a rank's roles."""
+    out = dict.fromkeys(("K1", "K2", "K3", "K4", "K9", "K10"), 0)
+    if "overlap" in rank:
+        out["K1"] += rank["overlap"]["k1"]
+    if "candidates" in rank:
+        out["K1"] += rank["candidates"]["step_k1"]
+        for v in rank["candidates"]["votes"].values():
+            for k in ("K2", "K3", "K4", "K9", "K10"):
+                out[k] += v["launches"][k]
+    if "construct" in rank:
+        out["K1"] += rank["construct"]["k1"]
+    return out
+
+
+def log_rank(tag: str, rank: dict, shd: dict) -> None:
+    o, c = rank["overlap"], rank["candidates"]
+    x = o["exchange"]
+    votes = ", ".join(f"{n} {v['mesh_s']:.3f} s (one device {v['single_s']:.3f} s)"
+                      for n, v in c["votes"].items())
+    log(f"{tag}: overlap-115M cold {o['cold_s']:.3f} s, steady {o['steady_s']:.3f} s "
+        f"(minimize {o['steady_stages_s'][0]:.3f}, filter {o['steady_stages_s'][1]:.3f}, "
+        f"map {o['steady_stages_s'][2]:.3f}) against phase 3b's 4-shard single process "
+        f"{shd['steady_s']:.3f} s; collectives {x['calls']} calls, {x['bytes']} B handed "
+        f"to them; a pass of its own with the collectives timed (the device synchronised "
+        f"around each) {o['timed_s']:.3f} s, {o['collective_s']:.3f} s of it in them; "
+        f"peak device memory {o['peak_bytes']} B; "
+        f"{o['overlaps']} overlaps, phase 3's digest; candidate pairs {c['pairs']} (the "
+        f"host oracle's); votes on the bank, bit-equal: {votes}; launches "
+        f"{rank_launches(rank)}")
+
+
+def phase_multiprocess(work_dir, reads115: str, ov: dict, shd: dict):
+    """Phase 3c (see the module docstring): one NCCL rank, then two gloo
+    ranks, each in child processes on cuda:0."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the children share the card
+    reads, _, _ = write_reads(work_dir, 1_000_000)  # phase 4's reads
+    with open(os.path.join(work_dir, "cli.gfa"), "rb") as f:
+        gfa_want = f.read()
+    t0 = time.perf_counter()
+    (nccl,) = run_ranks("overlap,candidates", 1, "nccl", 4, ["--reads", reads115, "--bank"])
+    nccl_wall = time.perf_counter() - t0
+    check_rank("NCCL, 1 rank, 4 shards on cuda:0", nccl, ov)
+    log_rank("NCCL, 1 rank of a virtual 4-shard mesh on cuda:0", nccl, shd)
+    t0 = time.perf_counter()
+    gloo = run_ranks("overlap,candidates", 2, "gloo", 2, ["--reads", reads115, "--bank"])
+    t1 = time.perf_counter()
+    prefix = os.path.join(work_dir, "multiprocess")
+    built = run_ranks("construct", 2, "gloo", 2, ["--reads", reads, "--gfa", prefix])
+    t2 = time.perf_counter()
+    for r, (rank, con) in enumerate(zip(gloo, built)):
+        tag = f"gloo rank {r} of 2, 2 shards on cuda:0"
+        check_rank(tag, rank, ov)
+        c = con["construct"]
+        with open(c["gfa"], "rb") as f:
+            got = f.read()
+        require(c["declines"] == 0 and c["k1"] > 0 and c["collectives"] > 0,
+                f"{tag}: the construct left the sharded index ({c})")
+        require(got.startswith(b"S\t") and got == gfa_want,
+                f"{tag}: the construct's GFA differs from phase 4b's")
+        rank["construct"] = c
+        log_rank(f"{tag} (two processes sharing one card over gloo, not a multi-card "
+                 "wall)", rank, shd)
+        log(f"{tag}: construct of phase 4's reads {c['construct_s']:.3f} s, assemble "
+            f"{c['assemble_s']:.3f} s, {c['nodes']} nodes, {c['edges']} edges; GFA "
+            f"{len(got)} B, phase 4b's byte for byte")
+    log(f"multi-process runs, start to exit: NCCL 1 rank {nccl_wall:.3f} s, gloo 2 ranks "
+        f"{t1 - t0:.3f} s (overlap, candidates) + {t2 - t1:.3f} s (construct)")
+    return {"nccl": nccl, "gloo": gloo, "reads": reads,
+            "launches": {"nccl_w1": rank_launches(nccl),
+                         **{f"gloo_rank{r}": rank_launches(g) for r, g in enumerate(gloo)}}}
+
+
+def phase_device_sketch(device, reads_path: str) -> dict:
+    """Phase 3d (see the module docstring) on the reads at `reads_path`."""
+    import torch
+
+    from raven_tpu_torch.io import load_sequences
+    from raven_tpu_torch.ops import sketch_cuda
+    from raven_tpu_torch.overlap import engine
+    from raven_tpu_torch.overlap.minimizer import minimize_reads
+
+    index = engine.MinimizerIndex
+    rs = load_sequences([reads_path])
+    ids = np.arange(len(rs))
+    bases = int(rs.lengths.sum())
+    require(bases >= index.DEVICE_MIN_BASES and index.DEVICE_SKETCH,
+            f"{bases} bases do not take the device-sketch route")
+
+    def build(on: bool):
+        idx = index(K, W, device=device)
+        idx.DEVICE_SKETCH = on
+        t0 = time.perf_counter()
+        idx.minimize(rs, ids, minhash=False, with_query_flags=True)
+        torch.cuda.synchronize()
+        return idx, time.perf_counter() - t0
+
+    ceiling = engine.MAX_TOTAL_ENTRIES
+    engine.MAX_TOTAL_ENTRIES = 0  # every device index declines
+    try:
+        sketch_cuda.LAUNCHES = 0
+        index.host_declines = 0
+        dev, dev_s = build(True)
+        launches, declines = sketch_cuda.LAUNCHES, index.host_declines
+        host, host_s = build(False)
+    finally:
+        engine.MAX_TOTAL_ENTRIES = ceiling
+    require(dev._device is None and host._device is None, "a device index was built")
+    require(declines == 1, f"{declines} declines, not 1")
+    require(launches > 0, "the device-sketch route launched K1 no time")
+    for a in ("_hashes", "_ids", "_pos", "_strand", "_qflag"):
+        require(np.array_equal(getattr(dev, a), getattr(host, a)),
+                f"the device-sketch route's index differs from the host sketch's in {a}")
+    t0 = time.perf_counter()
+    dev._device_sketch(rs, ids)
+    torch.cuda.synchronize()
+    sketch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    minimize_reads(rs, ids, K, W, False)
+    host_sketch_s = time.perf_counter() - t0
+    log(f"device-sketch route ({len(rs)} reads, {bases} bases, {dev._hashes.size} "
+        f"entries): index build {dev_s:.3f} s against {host_s:.3f} s with the host "
+        f"sketch, the same columns; the sketch alone {sketch_s:.3f} s on the card "
+        f"against {host_sketch_s:.3f} s on the host; K1 launches {launches}; "
+        f"declines {declines} (forced)")
+    return {"launches": launches, "index_s": dev_s, "host_index_s": host_s,
+            "sketch_s": sketch_s, "host_sketch_s": host_sketch_s}
 
 
 def make_genome(rng, size: int, repeat: tuple | None = None) -> np.ndarray:
@@ -1917,6 +2151,7 @@ def run() -> dict:
         k1 = phase_sketch(readset, device)
         ov = phase_overlap(readset, device, child, child_out)
         shd = phase_sharded(readset, device, ov)
+        reads115 = write_readset(readset, os.path.join(work, "overlap115.fa"))
     finally:
         if child.poll() is None:
             child.kill()
@@ -1924,6 +2159,8 @@ def run() -> dict:
     del readset
     main_path, repeat_path = phase_cli(device, work)
     api_run = phase_api(device, work)
+    mp = phase_multiprocess(work, reads115, ov, shd)
+    dsk = phase_device_sketch(device, mp["reads"])
     lay = phase_layout(device)
     k2 = phase_votes(device)
     k3, k4 = phase_band(device)
@@ -1936,6 +2173,7 @@ def run() -> dict:
 
     kernels = [{
         "name": "segment_sketch",
+        "launches_multiprocess": {r: n["K1"] for r, n in mp["launches"].items()},
         "route": "cuda",
         "source": "raven_tpu_torch/csrc/sketch.cu",
         "replaces": "raven_tpu/ops/pallas_sketch.py:125",
@@ -1948,6 +2186,7 @@ def run() -> dict:
         "launches_api_substages": api_run["launches"],
         "launches_sharded_overlap_stage": shd["launches"],
         "launches_mesh_polish_cli": pol_mesh["launches"],
+        "launches_device_sketch": dsk["launches"],
         "equal": True,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
@@ -1959,6 +2198,7 @@ def run() -> dict:
         "shape": k1["shape"],
     }, {
         "name": "window_consensus_votes",
+        "launches_multiprocess": {r: n["K2"] for r, n in mp["launches"].items()},
         "route": "cuda",
         "source": "raven_tpu_torch/csrc/consensus.cu",
         "replaces": "raven_tpu/ops/pallas_consensus.py:237",
@@ -1979,6 +2219,7 @@ def run() -> dict:
         "computed_cells": k2["computed_cells"],
     }, {
         "name": "band_forward",
+        "launches_multiprocess": {r: n["K3"] for r, n in mp["launches"].items()},
         "route": "cuda",
         "source": "raven_tpu_torch/csrc/band.cu",
         "replaces": "raven_tpu/ops/consensus_band.py:97",
@@ -1995,6 +2236,7 @@ def run() -> dict:
         "shape": k3["shape"],
     }, {
         "name": "band_walk_votes",
+        "launches_multiprocess": {r: n["K4"] for r, n in mp["launches"].items()},
         "route": "cuda",
         "source": "raven_tpu_torch/csrc/band.cu",
         "replaces": "raven_tpu/ops/consensus_band.py:172",
@@ -2011,6 +2253,7 @@ def run() -> dict:
         "shape": k4["shape"],
     }, {
         "name": "nw_moves_banded",
+        "launches_multiprocess": {r: n["K9"] for r, n in mp["launches"].items()},
         "route": "cuda",
         "source": "raven_tpu_torch/csrc/banded.cu",
         "replaces": "raven_tpu/ops/consensus_device.py:163",
@@ -2028,6 +2271,7 @@ def run() -> dict:
         "k2_ms_same_chunk": k9["k2_ms"],
     }, {
         "name": "traceback_banded",
+        "launches_multiprocess": {r: n["K10"] for r, n in mp["launches"].items()},
         "route": "cuda",
         "source": "raven_tpu_torch/csrc/banded.cu",
         "replaces": "raven_tpu/ops/consensus_device.py:304",

@@ -23,7 +23,9 @@ least 8, fragment rows to one of at least 256, placement rows clipped to
 of its size and dealt to its devices in contiguous blocks; each device
 runs K3 and K4 on its block, and each iteration's vote tables meet on the
 first device, summed there, for one rebuild whose consensus goes back to
-every device (raven_tpu's _resident_consensus_sharded).
+every device (raven_tpu's _resident_consensus_sharded).  Across
+processes each rank runs its own devices' blocks and the tables are
+all-reduced, so every rank rebuilds the same consensus.
 
 Weights are packed with the base into one uint8 (base | min(w, 63) << 2):
 quality weights cap at 63 on this engine.
@@ -36,7 +38,7 @@ import torch
 
 from raven_tpu_torch.device import resolve_device
 from raven_tpu_torch.ops import band_cuda
-from raven_tpu_torch.parallel.mesh import split_rows, sum_on_first
+from raven_tpu_torch.parallel.mesh import local_blocks, sum_on_first
 
 NEG = -(1 << 20)
 MATCH, MISMATCH, GAP = 3, -5, -4
@@ -153,8 +155,9 @@ def resident_consensus(cons0, lens0, fw_sh, q_lens, r0, win_idx, T: int, BW: int
     the walk votes over the whole fragment batch, the insertion
     canonicalisation and every window's rebuild, fed to the next iteration.
     With a mesh, the fragment rows (whose count must be a multiple of its
-    size) are dealt over its devices, the votes summed on its first device,
-    where cons0 and lens0 must lie.  Returns the last iteration's (toks
+    size) are dealt over its devices, the votes summed on its first device
+    (this process's first, all-reduced across processes), where cons0 and
+    lens0 must lie.  Returns the last iteration's (toks
     [NWIN, 2T+1] int8, lens [NWIN])."""
     if ITERS < 1:
         raise ValueError(f"ITERS must be at least 1, got {ITERS}")
@@ -164,7 +167,7 @@ def resident_consensus(cons0, lens0, fw_sh, q_lens, r0, win_idx, T: int, BW: int
     else:
         shards = [
             tuple(a[sl].to(dev) for a in rows)
-            for sl, dev in zip(split_rows(q_lens.shape[0], mesh.size), mesh.devices)
+            for dev, sl in local_blocks(mesh, q_lens.shape[0])
         ]
     cons, lens = cons0, lens0
     for _ in range(ITERS):
@@ -172,7 +175,7 @@ def resident_consensus(cons0, lens0, fw_sh, q_lens, r0, win_idx, T: int, BW: int
         bv, ir, cv = sum_on_first(
             (band_votes_kernel(cons.to(f.device), lens.to(f.device), f, q, r, wi, T, BW, NWIN)
              for f, q, r, wi in shards),
-            cons.device,
+            cons.device, mesh.group if mesh is not None else None,
         )
         iv = canonicalize_ins(ir, runs, T)
         toks, toks_len = _rebuild_device(cons, lens, bv, iv, cv, T)

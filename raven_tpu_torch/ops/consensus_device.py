@@ -14,7 +14,9 @@ Shapes are those of raven_tpu: consensus rows padded to t_pad, fragments
 to q_pad, fragment rows to whole chunks, windows to a power of two.  The
 host helpers homopolymer_run_map, consensus_votes and rebuild_consensus
 are copies.  With a mesh the fragment chunks are dealt over its devices
-and the vote tables summed on the first (raven_tpu's mesh-sharded votes).
+and the vote tables summed on the first (raven_tpu's mesh-sharded votes);
+across processes each rank runs its own devices' chunks and the sums are
+all-reduced, so every rank rebuilds the same consensus.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from raven_tpu_torch.device import resolve_device
 from raven_tpu_torch.ops.banded_cuda import check_kernel_shape, fused_votes_banded
 from raven_tpu_torch.ops.consensus_cuda import fused_votes
-from raven_tpu_torch.parallel.mesh import split_rows, sum_on_first
+from raven_tpu_torch.parallel.mesh import local_blocks, sum_on_first
 
 
 def _pow2_of(v: int, lo: int = 128) -> int:
@@ -61,8 +63,11 @@ def device_window_consensus(
     blocks; each device sums its own chunks' tables, and the tables meet
     on the first device, summed there (raven_tpu's _votes_step_sharded:
     integer sums, so the consensus is the one device's, bit for bit).
+    Across processes each rank takes its own devices' blocks and the
+    local sums are all-reduced (mesh.py's sum_on_first).
     """
     devices = mesh.devices if mesh is not None else (resolve_device(device),)
+    home = mesh.first if mesh is not None else devices[0]
     # the anchored band's width (lane-aligned)
     BW = min(256, _pow2_of(q_pad))
     if banded and any(d.type == "cuda" for d in devices):
@@ -88,13 +93,15 @@ def device_window_consensus(
 
     # fragments and weights do not change between iterations: on each
     # device once, its block of rows
-    blocks = split_rows(B_pad, len(devices))
+    blocks = (
+        local_blocks(mesh, B_pad) if mesh is not None else [(home, slice(0, B_pad))]
+    )
     shards = [
         (dev, rows, *(
             torch.from_numpy(a[rows]).to(dev)
             for a in (frags_arr, w_arr, q_lens, win_of_arr)
         ))
-        for dev, rows in zip(devices, blocks)
+        for dev, rows in blocks
     ]
 
     for _ in range(iterations):
@@ -132,7 +139,7 @@ def device_window_consensus(
                 iv += i_
                 cv += c_
             tables.append((bv, iv, cv))
-        bv, iv, cv = sum_on_first(tables, devices[0])
+        bv, iv, cv = sum_on_first(tables, home, mesh.group if mesh is not None else None)
         base_votes = bv.cpu().numpy().astype(np.int64)
         ins_votes = iv.cpu().numpy().astype(np.int64)
         cover = cv.cpu().numpy().astype(np.int64)

@@ -235,3 +235,30 @@ def sketch_segments(codes, eff_lens, read_ids, base_offsets, claim_lo,
     gpos = (pos + base_offsets[:, None]).reshape(-1)
     sb = strand.reshape(-1).to(torch.int32)
     return key, ids, gpos, sb
+
+
+def sketch_compact(codes, lengths, read_ids, k: int, w: int, capacity: int):
+    """raven_tpu's sketch_compact_kernel (raven_tpu/ops/sketch.py:317): K1
+    on `[B, L]` read rows, then every cell as (key int64, id int32, pos
+    int32, strand int32) in flattened read-major order, stably sorted by
+    key (kept minimizers' hashes; UINT32_INF, the largest key, where none
+    is kept), cut to `capacity` entries (the smallest keys) or padded to
+    it with UINT32_INF keys (id -1, pos 0, strand 0) when the rows hold
+    fewer cells.  Returns those four columns and, fifth, the count of kept
+    minimizers before the cut (a 0-d tensor on the rows' device).  codes:
+    [B, L] uint8; lengths, read_ids: [B] int32, on one device; K1 on a
+    CUDA tensor, its plain version on a CPU tensor."""
+    h, strand, keep = sketch(codes, lengths, k, w)
+    B, L = h.shape
+    key = torch.where(keep, h.to(torch.int64), int(UINT32_INF)).reshape(-1)
+    ids = read_ids.to(torch.int32)[:, None].expand(B, L).reshape(-1)
+    pos = torch.arange(L, dtype=torch.int32, device=h.device).repeat(B)
+    sb = strand.reshape(-1).to(torch.int32)
+    key, order = torch.sort(key, stable=True)
+    cols = (key, ids[order], pos[order], sb[order])
+    kept = keep.sum()
+    pad = capacity - key.numel()
+    if pad <= 0:
+        return (*(c[:capacity] for c in cols), kept)
+    fill = (int(UINT32_INF), -1, 0, 0)
+    return (*(torch.cat([c, c.new_full((pad,), v)]) for c, v in zip(cols, fill)), kept)

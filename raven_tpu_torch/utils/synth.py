@@ -8,7 +8,8 @@ behind the synthetic golden test, `make_windows` is bench_polish.py's bank
 of 500 bp consensus windows, `overlap_digest` is bench.py's
 order-independent digest of an emitted overlap set, and `contig_ed` is
 misc/reference_compare.py's anchored edit distance of a contig against the
-true genome.
+true genome; `random_genome` and `sample_reads` are tests/conftest.py's
+small read simulator, which the multi-process worker's roles draw from.
 """
 
 from __future__ import annotations
@@ -42,6 +43,37 @@ def synth_reads(
         reads.append(seg)
         acc += length
     return ReadSet.from_sequences(reads)
+
+
+def random_genome(rng, n: int) -> str:
+    """tests/conftest.py::random_genome: `n` uniform bases as a string."""
+    return "".join("ACGT"[c] for c in rng.integers(0, 4, size=n))
+
+
+def sample_reads(rng, genome: str, n_reads: int, mean_len: int, error: float = 0.0):
+    """tests/conftest.py::sample_reads: reads of ~mean_len (normal, sd a
+    quarter) from either strand of `genome`, with `error` substitutions;
+    returns (code arrays, (start, end, reverse) placements)."""
+    reads = []
+    positions = []
+    lookup = np.zeros(256, dtype=np.uint8)
+    lookup[np.frombuffer(b"ACGT", dtype=np.uint8)] = np.arange(4, dtype=np.uint8)
+    gcodes = lookup[np.frombuffer(genome.encode(), dtype=np.uint8)]
+    for _ in range(n_reads):
+        length = max(200, int(rng.normal(mean_len, mean_len // 4)))
+        length = min(length, len(genome) - 1)
+        start = int(rng.integers(0, len(genome) - length))
+        codes = gcodes[start : start + length].copy()
+        if error > 0:
+            nerr = rng.binomial(length, error)
+            idx = rng.integers(0, length, size=nerr)
+            codes[idx] = (codes[idx] + rng.integers(1, 4, size=nerr)) % 4
+        strand = bool(rng.integers(0, 2))
+        if strand:
+            codes = (codes[::-1] ^ 3).astype(np.uint8)
+        reads.append(codes)
+        positions.append((start, start + length, strand))
+    return reads, positions
 
 
 def simulate_reads(
