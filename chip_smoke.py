@@ -124,7 +124,21 @@ failure:
      on the card in both rounds), with the same gate, K9 and K10 launched
      equally often, the crossing DP run on the card, and the consensus
      calls split into K9, K10 and the epilogue;
- 12. a `kernels` JSON line, the card's name and power limit, and the last
+ 12. the end of the module port: (a) raven_tpu_torch.dryrun.entry's
+     consensus step (K2 and the vote epilogue at T=128, Q=160) on the
+     card, one K2 launch, its vote tables bit-equal to the same step on
+     the CPU; (b) dryrun_multichip on a virtual mesh of 8 shards on the
+     card (the sharded candidate step, the row-split infix DP, the
+     sharded construct on a skewed read set, both engines' mesh votes):
+     every check, 0 declines, K1, K2, K3 and K4 launched, and its pairs,
+     DP maximum, graph and one-device consensus of both engines equal to
+     the same dry run's on Mesh(["cpu"] * 8) (the plain versions); (c)
+     ops/overlap_step.py's metric functions at full size, each equal to a
+     numpy recount of the same key-sorted sketch: candidate_count,
+     join_count and join_count_filtered on overlap-115M's reads in segment
+     rows, overlap_candidates (max_hits 16) on phase 4's reads; each wall
+     and rate printed beside the card's name and power limit;
+ 13. a `kernels` JSON line, the card's name and power limit, and the last
      line {"ok": true, "device": {...}}.
 """
 
@@ -1039,10 +1053,7 @@ def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> di
     argv = [path, *flags, "--disable-checkpoints", "--device", device]
     timings: dict = {}
     out = io.StringIO()
-    sketch_cuda.LAUNCHES = 0
-    consensus_cuda.LAUNCHES = 0
-    band_cuda.LAUNCHES.update(dict.fromkeys(band_cuda.LAUNCHES, 0))
-    banded_cuda.LAUNCHES.update(dict.fromkeys(banded_cuda.LAUNCHES, 0))
+    zero_counts()
     dp_device.DEVICE_RUNS = 0
     layout.DEVICE_RUNS = 0
     MinimizerIndex.host_declines = 0
@@ -1678,9 +1689,7 @@ def phase_mesh_votes(device):
         single = time.perf_counter() - t0
         walls = []
         for m in meshes:
-            consensus_cuda.LAUNCHES = 0
-            banded_cuda.LAUNCHES.update(dict.fromkeys(banded_cuda.LAUNCHES, 0))
-            band_cuda.LAUNCHES.update(dict.fromkeys(band_cuda.LAUNCHES, 0))
+            zero_counts()
             t0 = time.perf_counter()
             got = call(mesh=m)
             walls.append(time.perf_counter() - t0)
@@ -2102,6 +2111,200 @@ def phase_polish_banded(device, work_dir, draft):
     return run
 
 
+# ------------------------------------------------------ the end of the port
+def zero_counts() -> None:
+    """Every kernel's launch count (K1, K2, K3/K4, K9/K10) to 0."""
+    from raven_tpu_torch.ops import band_cuda, banded_cuda, consensus_cuda, sketch_cuda
+
+    sketch_cuda.LAUNCHES = 0
+    consensus_cuda.LAUNCHES = 0
+    band_cuda.LAUNCHES.update(dict.fromkeys(band_cuda.LAUNCHES, 0))
+    banded_cuda.LAUNCHES.update(dict.fromkeys(banded_cuda.LAUNCHES, 0))
+
+
+def read_counts() -> dict:
+    from raven_tpu_torch.ops import band_cuda, banded_cuda, consensus_cuda, sketch_cuda
+
+    return {"K1": sketch_cuda.LAUNCHES, "K2": consensus_cuda.LAUNCHES,
+            "K3": band_cuda.LAUNCHES["band_forward"],
+            "K4": band_cuda.LAUNCHES["mask_walk_votes"],
+            "K9": banded_cuda.LAUNCHES["nw_moves_banded"],
+            "K10": banded_cuda.LAUNCHES["traceback_banded"]}
+
+
+def timed(fn):
+    """(fn()'s result, its wall in seconds with the card synchronised on
+    both sides)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_entry(device, smi: str) -> dict:
+    """Phase 12a: raven_tpu_torch.dryrun.entry's consensus step (K2 and the
+    vote epilogue at T=128, Q=160, 8 windows) on the card, one K2 launch,
+    its three vote tables bit-equal to the same fn on the CPU (the plain
+    version)."""
+    import torch
+
+    from raven_tpu_torch.dryrun import entry
+
+    fn, args = entry(device)
+    zero_counts()
+    got, wall = timed(lambda: fn(*args))
+    launches = read_counts()["K2"]
+    want, plain = timed(lambda: fn(*(a.cpu() for a in args)))
+    require(launches == 1, f"entry's step launched K2 {launches} times, not once")
+    require(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+            "entry's vote tables on the card differ from the plain version's")
+    _, steady = timed(lambda: fn(*args))
+    log(f"entry (fused_votes, T=128, Q=160, 8 windows, 64 fragments) on {smi}: "
+        f"{wall:.6f} s on the card for the first call (K2 launches {launches}), "
+        f"{steady:.6f} s for a second; the plain version's {plain:.6f} s on the CPU; "
+        "the three vote tables bit-equal")
+    return {"launches": launches, "wall_s": wall, "steady_s": steady}
+
+
+def phase_dryrun(device, smi: str) -> dict:
+    """Phase 12b: dryrun_multichip on a virtual mesh of 8 shards on the
+    card: every check, 0 declines, K1, K2, K3 and K4 launched; then the same
+    dry run on Mesh(["cpu"] * 8), where every kernel is its plain version,
+    and the card's results equal to the CPU's: the candidate pairs (K1),
+    the DP maximum, the construct's live nodes and graph digest (K1), and
+    the one-device consensus of (d) (K2) and (e) (K3, K4) bit for bit."""
+    from raven_tpu_torch.dryrun import dryrun_multichip
+    from raven_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh([device] * 8)
+    zero_counts()
+    res, wall = timed(lambda: dryrun_multichip(mesh))
+    launches = read_counts()
+    require(res["declines"] == 0, f"{res['declines']} declines in the dry run")
+    for k in ("K1", "K2", "K3", "K4"):
+        require(launches[k] > 0, f"the dry run launched {k} no time: {launches}")
+    t0 = time.perf_counter()
+    plain = dryrun_multichip(Mesh(["cpu"] * 8))
+    plain_wall = time.perf_counter() - t0
+    for key in ("pairs", "dp_max", "live_nodes", "graph_digest"):
+        require(res[key] == plain[key],
+                f"the dry run's {key} on the card {res[key]}, on the CPU {plain[key]}")
+    for key in ("consensus", "band"):
+        require(len(res[key]) == len(plain[key]) and all(
+            np.array_equal(g, w) for g, w in zip(res[key], plain[key])),
+            f"the dry run's one-device {key} on the card differs from the CPU's")
+    log(f"dry run on {mesh} on {smi}: {wall:.3f} s; {res['pairs']} candidate pairs, DP "
+        f"max {res['dp_max']}, {res['live_nodes']} live nodes, {res['declines']} "
+        f"declines, both consensus engines bit-equal to one device; launches "
+        f"{launches} (a virtual mesh's wall, not what 8 cards would give); on "
+        f"Mesh(['cpu'] * 8) with the plain versions {plain_wall:.3f} s, the same pairs, "
+        f"DP max, live nodes, graph digest and one-device consensus of both engines")
+    return {**res, "launches": launches, "wall_s": wall, "plain_wall_s": plain_wall}
+
+
+def segment_rows(readset, device):
+    """`readset` tiled into K1's halo'd segment rows of the device index
+    (width 2048) on the card: codes [S, 2048] uint8, lengths and read ids
+    [S] int32.  A cell in a halo is sketched by both of its rows."""
+    import torch
+
+    from raven_tpu_torch.ops.sketch import segment_reads_packed, unpack_codes
+    from raven_tpu_torch.overlap.device_index import SEG_WIDTH
+
+    packed, eff, rid, *_ = segment_reads_packed(readset, np.arange(len(readset)), K, W,
+                                                width=SEG_WIDTH)
+    return (unpack_codes(torch.from_numpy(packed).to(device)),
+            torch.from_numpy(eff).to(device), torch.from_numpy(rid).to(device))
+
+
+def phase_metrics(device, smi: str, reads115: str, reads_cli: str) -> dict:
+    """Phase 12c: ops/overlap_step.py's metric functions at full size on
+    the card, each held against a numpy recount of the same key-sorted
+    sketch (sketch_compact's columns, copied to the host).  On
+    overlap-115M's reads in segment rows: candidate_count, join_count and
+    join_count_filtered (blacklist: the hashes above the occurrence
+    threshold) must each give the sum of c (c - 1) / 2 over the runs of at
+    most the threshold (np.unique counts; the three agree there by their
+    definitions).  On cli-1M-30x's reads: overlap_candidates with
+    max_hits=16 and the capacity at the kept minimizers must give the
+    per-entry slot rule's columns and pair count.  Walls and rates are
+    information only."""
+    import torch
+
+    from raven_tpu_torch.io import load_sequences
+    from raven_tpu_torch.ops import overlap_step as ostep
+    from raven_tpu_torch.ops.sketch import sketch_compact
+
+    out = {}
+    codes, lens, rids = segment_rows(load_sequences([reads115]), device)
+    cells = codes.numel()
+    key, ids, _, _, kept = sketch_compact(codes, lens, rids, K, W, cells)
+    key_h = key.cpu().numpy()
+    uniq, counts = np.unique(key_h[: int(kept)], return_counts=True)
+    occ = ostep.estimate_occurrence(counts, FREQ)
+    small = counts[counts <= occ]
+    want = int((small * (small - 1) // 2).sum())
+    blacklist = torch.from_numpy(uniq[counts > occ]).to(device)
+    require(blacklist.numel() > 0, f"no hash occurs more than {occ} times")
+    zero_counts()
+    runs = (
+        ("candidate_count", cells,
+         lambda: ostep.candidate_count(codes, lens, rids, K, W, cells, occ)),
+        ("join_count", cells, lambda: ostep.join_count(key, ids, occ)),
+        ("join_count_filtered", cells,
+         lambda: ostep.join_count_filtered(key, blacklist, occ)),
+    )
+    for name, n, call in runs:
+        got, wall = timed(call)
+        require(int(got) == want, f"{name} gave {int(got)}, the numpy recount {want}")
+        out[name] = {"entries": n, "pairs": want, "wall_s": wall}
+        log(f"{name} on overlap-115M ({codes.shape[0]} segment rows, {n} entries, "
+            f"{int(kept)} kept minimizers, occurrence {occ}, blacklist "
+            f"{blacklist.numel()}) on {smi}: {wall:.4f} s, {n / wall:.1f} entries/s, "
+            f"{want} pairs, the numpy recount's")
+    out["k1_launches_115M"] = read_counts()["K1"]
+    del codes, lens, rids, key, ids, blacklist, key_h
+
+    codes, lens, rids = segment_rows(load_sequences([reads_cli]), device)
+    key, ids, pos, sb, kept = sketch_compact(codes, lens, rids, K, W, codes.numel())
+    cap, hits = int(kept), 16
+    key_h, ids_h, pos_h, sb_h = (c[:cap].cpu().numpy() for c in (key, ids, pos, sb))
+    occ2 = ostep.estimate_occurrence(np.unique(key_h, return_counts=True)[1], FREQ)
+    zero_counts()
+    got, wall = timed(lambda: ostep.overlap_candidates(codes, lens, rids, K, W, cap, hits,
+                                                       occ2))
+    launches = read_counts()["K1"]
+    # the numpy recount: each entry's slots [lo, lo + hits) of its bucket
+    lo = np.searchsorted(key_h, key_h, "left")
+    hi = np.searchsorted(key_h, key_h, "right")
+    slot = lo[:, None] + np.arange(hits)[None, :]
+    in_range = slot < hi[:, None]
+    np.clip(slot, 0, cap - 1, out=slot)
+    t_id = ids_h[slot]
+    valid = in_range & ((hi - lo <= occ2)[:, None]) & (t_id > ids_h[:, None])
+    want_cols = (np.broadcast_to(ids_h[:, None], slot.shape),
+                 np.broadcast_to(pos_h[:, None], slot.shape), t_id, pos_h[slot],
+                 (sb_h[slot] == sb_h[:, None]).astype(np.int32), valid)
+    names = ("q_id", "q_pos", "t_id", "t_pos", "same", "valid")
+    for name, g, w in zip(names, got[:6], want_cols):
+        require(np.array_equal(g.cpu().numpy().reshape(slot.shape), w),
+                f"overlap_candidates' {name} differs from the numpy recount")
+    pairs = int(valid.sum())
+    require(int(got[6]) == pairs > 0,
+            f"overlap_candidates counted {int(got[6])} pairs, the recount {pairs}")
+    out["overlap_candidates"] = {"entries": cap, "slots": cap * hits, "pairs": pairs,
+                                 "wall_s": wall, "k1_launches": launches}
+    out["k1_launches"] = out["k1_launches_115M"] + launches
+    log(f"overlap_candidates on cli-1M-30x ({codes.shape[0]} segment rows, {cap} kept "
+        f"minimizers, max_hits {hits}, occurrence {occ2}) on {smi}: {wall:.4f} s, "
+        f"{pairs / wall:.1f} pairs/s, {cap * hits / wall:.1f} slots/s, {pairs} pairs; "
+        f"the numpy recount's six columns and count; K1 launches {launches}")
+    return out
+
+
 # -------------------------------------------------------------------- main
 def run() -> dict:
     import torch
@@ -2170,6 +2373,9 @@ def run() -> dict:
     pol_mesh = phase_polish_mesh(device, work, pol)
     dflt = phase_polish_default(device, work, main_path["contigs"][0])
     bnd = phase_polish_banded(device, work, main_path["contigs"][0])
+    ent = phase_entry(device, smi)
+    dry = phase_dryrun(device, smi)
+    met = phase_metrics(device, smi, reads115, mp["reads"])
 
     kernels = [{
         "name": "segment_sketch",
@@ -2187,6 +2393,8 @@ def run() -> dict:
         "launches_sharded_overlap_stage": shd["launches"],
         "launches_mesh_polish_cli": pol_mesh["launches"],
         "launches_device_sketch": dsk["launches"],
+        "launches_dryrun": dry["launches"]["K1"],
+        "launches_metrics": met["k1_launches"],
         "equal": True,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
@@ -2205,6 +2413,8 @@ def run() -> dict:
         "launches": pol["k2_launches"],
         "launches_mesh_votes": mv["full-NW"]["launches"]["K2"],
         "launches_mesh_polish_cli": pol_mesh["k2_launches"],
+        "launches_entry": ent["launches"],
+        "launches_dryrun": dry["launches"]["K2"],
         "equal": True,
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
@@ -2225,6 +2435,7 @@ def run() -> dict:
         "replaces": "raven_tpu/ops/consensus_band.py:97",
         "launches": dflt["k3_launches"],
         "launches_mesh_votes": mv["shift-banded"]["launches"]["K3"],
+        "launches_dryrun": dry["launches"]["K3"],
         "equal": True,
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
@@ -2242,6 +2453,7 @@ def run() -> dict:
         "replaces": "raven_tpu/ops/consensus_band.py:172",
         "launches": dflt["k4_launches"],
         "launches_mesh_votes": mv["shift-banded"]["launches"]["K4"],
+        "launches_dryrun": dry["launches"]["K4"],
         "equal": True,
         "max_abs_err": k4["max_abs_err"],
         "ms": k4["ms"],
