@@ -138,8 +138,23 @@ failure:
      join_count and join_count_filtered on overlap-115M's reads in segment
      rows, overlap_candidates (max_hits 16) on phase 4's reads; each wall
      and rate printed beside the card's name and power limit;
- 13. a `kernels` JSON line, the card's name and power limit, and the last
-     line {"ok": true, "device": {...}}.
+ 13. parity with raven_tpu's switches and widths: (a) K3/K4 against their
+     plain versions, bit for bit, at every band width raven_tpu takes up
+     to 512 (a multiple of 16; 16 windows of 120 bases at T = 160), and
+     timed beside their bounds at BW = 128 and 384 on the bank's first 128
+     windows (insertion runs across the strips too); K9/K10 at q_pad 100,
+     128 and 200 (bands of 128, 128 and 256, two wider than the fragment)
+     on the K2 rows cut to each, with fragments cut at random lengths,
+     steep spans and all-mismatch rows, the bank chunk timed beside its
+     bound; (b) `-p 2 --device-poa-batches 8` on phase 4's reads with
+     Polisher.CONSENSUS_ENGINE = "shiftband" and CONSENSUS_ITERS = 2: the
+     shift-banded consensus in both rounds (K3 and K4 launched in each, K2
+     never), the polish gate, its wall beside phase 9's; (c) the
+     index-batch budget for an index on the card by default, for the host
+     index and under a budget set above the clamp, raven_tpu's values;
+ 14. a `kernels` JSON line (K3, K4, K9 and K10 with the widths they ran
+     at), the card's name and power limit, and the last line {"ok": true,
+     "device": {...}}.
 """
 
 from __future__ import annotations
@@ -214,6 +229,12 @@ K10_CHAIN_CYCLES = 9 * 4 + 30
 BANDED_T, BANDED_Q, BANDED_BW = 640, 768, 256  # device_window_consensus's shapes
 BAND_DEFAULT_LAUNCHES = 64  # 16 groups of up to 128 windows x 4 iterations
 BAND_T, BAND_BW = 640, 256  # the shift-banded consensus's t_pad and band
+# phase 13: the band widths beside 256 that K3/K4 are timed at (raven_tpu
+# takes any multiple of 16; every one up to 512 is held bit for bit), and
+# the q_pads that give K9/K10 a band of 128 or one past the fragment
+BAND_WIDTHS = (128, 384)
+BAND_SWEEP = tuple(range(16, 513, 16))
+BANDED_Q_PADS = (100, 128, 200)
 ED_RATE_CEILING = 0.0005  # tests/test_synthetic_golden.py
 
 
@@ -281,7 +302,9 @@ def device_ms(fn, kernel: str, runs: int = 20, warmup: int = 3):
     """Median device time in milliseconds of the launches of `kernel` (a
     substring of its name) over `runs` calls of fn(), from a torch.profiler
     trace: the kernel's own time on the card, without its wrapper's host
-    work; None when the trace holds no such launch."""
+    work.  A trace that holds no device event of the kernel (seen on the
+    H100 for the first trace after phase 12's) is taken again, up to three
+    in all; None when none holds one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -289,13 +312,16 @@ def device_ms(fn, kernel: str, runs: int = 20, warmup: int = 3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
-    return statistics.median(times) if times else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if times:
+            return statistics.median(times)
+    return None
 
 
 def fmt_ms(t) -> str:
@@ -484,9 +510,11 @@ def log_band_sass() -> None:
     from raven_tpu_torch import csrc
 
     so = os.path.join(csrc.build_dir(), "libband.so")
-    for kernel in ("band_forward_kernel", "band_walk_kernel"):
+    # the BW = 256 instantiations, by their mangled template arguments
+    for kernel, inst in (("band_forward_kernel", "ILi16ELi256EE"),
+                         ("band_walk_kernel", "ILi256ELi16EE")):
         try:
-            n, loops = sass_loops(so, kernel)
+            n, loops = sass_loops(so, kernel + inst)
         except (OSError, subprocess.SubprocessError, StopIteration) as e:
             log(f"  SASS of {kernel}: not read ({e!r})")
             continue
@@ -514,9 +542,10 @@ def log_banded_sass() -> None:
     from raven_tpu_torch import csrc
 
     so = os.path.join(csrc.build_dir(), "libbanded.so")
+    # the BW = 256 instantiations, by their mangled template argument
     for kernel in ("nw_moves_banded_kernel", "traceback_banded_kernel"):
         try:
-            n, loops = sass_loops(so, kernel)
+            n, loops = sass_loops(so, kernel + "ILi256EE")
         except (OSError, subprocess.SubprocessError, StopIteration) as e:
             log(f"  SASS of {kernel}: not read ({e!r})")
             continue
@@ -1396,6 +1425,17 @@ def band_mutate(rng, codes, sub, dele, ins):
     return np.repeat(seg, 1 + insm.astype(np.int64))
 
 
+def band_layout(grp, BW: int, q_pad: int = 768, T: int = BAND_T):
+    """A group of windows ((backbone, fragments, weights[, spans]) each) as
+    band_window_consensus lays it out at t_pad T and a band of BW (its
+    _prepare_group): numpy (cw, t_lens, fw_sh, q_lens, r0)."""
+    from raven_tpu_torch.ops import consensus_band as cb
+
+    grp = [(w[0], w[1], w[2], w[3] if len(w) > 3 else None) for w in grp]
+    (cons0, lens0, fw_sh, q_lens, r0, win), _ = cb._prepare_group(grp, T, q_pad, BW)
+    return cons0[win], lens0[win], fw_sh, q_lens, r0
+
+
 def band_cases():
     """[name, (cw, t_lens, fw_sh, q_lens, r0)] numpy cases for K3 and K4 at
     T = 640, BW = 256, laid out as band_window_consensus lays out a group
@@ -1408,9 +1448,7 @@ def band_cases():
     windows, _ = make_windows(512, 500, 30, np.random.default_rng(21))
 
     def layout(grp, q_pad=768):
-        grp = [(w[0], w[1], w[2], w[3] if len(w) > 3 else None) for w in grp]
-        (cons0, lens0, fw_sh, q_lens, r0, win), _ = cb._prepare_group(grp, T, q_pad, BW)
-        return cons0[win], lens0[win], fw_sh, q_lens, r0
+        return band_layout(grp, BW, q_pad)
 
     bank = layout(windows[:128])
     cases = [("bank group", bank), ("ragged B", tuple(a[:1237] for a in bank))]
@@ -1440,20 +1478,7 @@ def band_cases():
     cases.append(("fragments past the band", layout(doubled, q_pad=1536)))
     # runs of 20-60 bases the consensus lacks, 1-3 a fragment: their left
     # moves cross K3's 16-lane strips on one band row
-    rng = np.random.default_rng(9)
-    runs = []
-    for bb, fr, wt in windows[256:384]:
-        frs, wts = [], []
-        for f, w in zip(fr, wt):
-            for _ in range(int(rng.integers(1, 4))):
-                at = int(rng.integers(1, f.size))
-                n_ins = int(rng.integers(20, 61))
-                f = np.concatenate([f[:at], rng.integers(0, 4, n_ins).astype(np.uint8), f[at:]])
-                w = np.concatenate([w[:at], np.full(n_ins, 30, np.uint8), w[at:]])
-            frs.append(f)
-            wts.append(w)
-        runs.append((bb, frs, wts))
-    cases.append(("insertion runs across strips", layout(runs)))
+    cases.append(("insertion runs across strips", layout(insertion_runs(windows[256:384]))))
     # all-A consensus rows of 0, 1 or 640 bases against 50 C's: 50 * GAP is
     # the best end score or ties it, so every walk starts at row 0
     n = 1024
@@ -1840,6 +1865,253 @@ def phase_banded(device, k2_ms):
             k10 = {"max_abs_err": err10, "ms": ms10, "plain_ms": plain10, "device_ms": dev10,
                    "bound_ms": b10, "bound_by": by10, "shape": [B, T, Q, BW]}
     return k9, k10
+
+
+def insertion_runs(windows):
+    """The windows with 1-3 runs of 20-60 bases their consensus lacks put
+    into each fragment (weight 30): left moves across K3's 16-lane strips."""
+    rng = np.random.default_rng(9)
+    runs = []
+    for bb, fr, wt in windows:
+        frs, wts = [], []
+        for f, w in zip(fr, wt):
+            for _ in range(int(rng.integers(1, 4))):
+                at = int(rng.integers(1, f.size))
+                n_ins = int(rng.integers(20, 61))
+                f = np.concatenate([f[:at], rng.integers(0, 4, n_ins).astype(np.uint8), f[at:]])
+                w = np.concatenate([w[:at], np.full(n_ins, 30, np.uint8), w[at:]])
+            frs.append(f)
+            wts.append(w)
+        runs.append((bb, frs, wts))
+    return runs
+
+
+def check_band(device, arrays, BW: int, name: str, timed: bool):
+    """K3 and K4 against their plain versions at a band of BW on `arrays`
+    (cw [B, T], t_lens, fw_sh, q_lens, r0), bit for bit; with `timed`,
+    their times and bounds.  Returns the case's fields for the kernels
+    line."""
+    import torch
+
+    from raven_tpu_torch.ops import band_cuda as bc
+
+    cw, tl, fw, ql, r0 = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
+    B, T = cw.shape
+    got = bc.band_forward(cw, tl, fw, ql, r0, T, BW)
+    want = bc.band_forward_plain(cw, tl, fw, ql, r0, T, BW)
+    gv = bc.mask_walk_votes(*want, fw, ql, r0, T, BW)
+    wv = bc.mask_walk_votes_plain(*want, fw, ql, r0, T, BW)
+    torch.cuda.synchronize()
+    err3 = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, want))
+    err4 = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(gv, wv))
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            f"K3 differs from band_forward_plain at {name} [{B}, {T}, {BW}] (max abs err {err3})")
+    require(all(torch.equal(a, b) for a, b in zip(gv, wv)),
+            f"K4 differs from mask_walk_votes_plain at {name} [{B}, {T}, {BW}] "
+            f"(max abs err {err4})")
+    out = {"case": name, "shape": [B, T, BW], "max_abs_err": max(err3, err4)}
+    if not timed:
+        return out
+    ms3 = cuda_ms(lambda: bc.band_forward(cw, tl, fw, ql, r0, T, BW))
+    ms4 = cuda_ms(lambda: bc.mask_walk_votes(*want, fw, ql, r0, T, BW))
+    dev3 = device_ms(lambda: bc.band_forward(cw, tl, fw, ql, r0, T, BW), "band_forward_kernel")
+    dev4 = device_ms(lambda: bc.mask_walk_votes(*want, fw, ql, r0, T, BW), "band_walk_kernel")
+    b3, by3, _ = band_forward_bound(B, T, BW)
+    b4, by4, p4 = band_walk_bound(wv[0], B, T, BW)
+    log(f"K3/K4 {name} [B, T, BW] = [{B}, {T}, {BW}]: bit-equal; {p4['voted_rows']} voted "
+        f"rows, {int((wv[1] != 0).sum())} insertion votes; K3 {ms3:.4f} ms (device "
+        f"{fmt_ms(dev3)}), bound {b3:.4f} ms by {by3}; K4 {ms4:.4f} ms (device "
+        f"{fmt_ms(dev4)}), bound {b4:.4f} ms by {by4}")
+    out.update({"K3": {"ms": ms3, "device_ms": dev3, "bound_ms": b3, "bound_by": by3},
+                "K4": {"ms": ms4, "device_ms": dev4, "bound_ms": b4, "bound_by": by4}})
+    return out
+
+
+def banded_width_cases(q_pad: int):
+    """[name, (cw, tlens, frags, qlens, r0, r1, wts)] numpy cases for K9 and
+    K10 at T = 640 and q_pad (its band min(256, pow2(q_pad))): the bank's
+    first chunk of 2,048 rows cut to q_pad (every fragment longer than it,
+    so the band's columns past Q read its last base), the same rows cut at
+    random lengths up to q_pad, steep spans of 2-250 rows beside full-span
+    ones, and all-mismatch rows."""
+    from raven_tpu_torch.utils.synth import make_windows
+
+    T = BANDED_T
+    windows, _ = make_windows(512, 500, 30, np.random.default_rng(21))
+    chunk = banded_layout(windows, 2048, q_pad=q_pad)
+    cw, tl, fr, ql, r0, r1, wt = (a.copy() for a in chunk)
+    cases = [(f"bank chunk, q_pad {q_pad}", chunk)]
+    rng = np.random.default_rng(q_pad)
+    cut = rng.integers(0, q_pad + 1, ql.size).astype(np.int32)
+    fr_c = np.where(np.arange(q_pad)[None, :] < cut[:, None], fr, -1).astype(np.int32)
+    wt_c = np.where(fr_c >= 0, wt, 0).astype(np.int32)
+    cases.append((f"cut fragments, q_pad {q_pad}", (cw, tl, fr_c, cut, r0, r1, wt_c)))
+    steep = rng.random(r0.size) < 0.5
+    r0s = np.where(steep, (rng.random(r0.size) * tl * 0.7).astype(np.int32), r0)
+    r1s = np.where(steep, r0s + rng.integers(2, 251, r0.size), r1).astype(np.int32)
+    cases.append((f"steep spans, q_pad {q_pad}", (cw, tl, fr_c, cut, r0s, r1s, wt_c)))
+    n = 256
+    cwm = np.where(np.arange(T)[None, :] < tl[:n, None], 0, -1).astype(np.int32)
+    cases.append((f"all mismatches, q_pad {q_pad}",
+                  (cwm, tl[:n], np.ones((n, q_pad), np.int32), np.full(n, q_pad, np.int32),
+                   np.zeros(n, np.int32), np.maximum(tl[:n], 1),
+                   np.full((n, q_pad), 7, np.int32))))
+    return cases
+
+
+def check_banded(device, arrays, name: str, timed: bool):
+    """K9 and K10 against their plain versions on `arrays` (cw, tlens,
+    frags, qlens, r0, r1, wts) at q_pad = frags' width and its band, bit
+    for bit on every output; with `timed`, their times and bounds.
+    Returns the case's fields for the kernels line."""
+    import torch
+
+    from raven_tpu_torch.ops import banded_cuda as bc
+    from raven_tpu_torch.ops.consensus_device import _pow2_of
+
+    T = BANDED_T
+    cw, tl, fr, ql, r0, r1, wt = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays
+    )
+    B, Q = fr.shape
+    BW = min(256, _pow2_of(Q))
+    got = bc.nw_moves_banded(cw, tl, fr, ql, r0, r1, T, Q, BW)
+    want = bc.nw_moves_banded_plain(cw, tl, fr, ql, r0, r1, T, Q, BW)
+    gw = bc.traceback_banded(*want, ql, fr, wt, T, Q, BW)
+    ww, kinds, steps = bc.traceback_banded_plain(*want, ql, fr, wt, T, Q, BW, return_walks=True)
+    torch.cuda.synchronize()
+    err9 = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, want))
+    err10 = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(gw, ww))
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            f"K9 differs from nw_moves_banded_plain at {name} [{B}, {T}, {Q}, {BW}] (max abs "
+            f"err {err9}; " + first_diffs(got, want, ("moves", "offs", "end_scores", "row0"))
+            + ")")
+    require(all(torch.equal(a, b) for a, b in zip(gw, ww)),
+            f"K10 differs from traceback_banded_plain at {name} [{B}, {T}, {Q}, {BW}] (max abs "
+            f"err {err10}; " + first_diffs(gw, ww, ("col_sym", "col_w", "ins_b", "ins_w"))
+            + ")")
+    out = {"case": name, "shape": [B, T, Q, BW], "max_abs_err": max(err9, err10)}
+    ends = ", ".join(f"{int((kinds == i).sum())} {k}" for i, k in enumerate(
+        ("at column 0", "stalled on the top row", "stopped at the band's edge",
+         "on a row past the consensus")))
+    if not timed:
+        log(f"K9/K10 {name} [B, T, Q, BW] = [{B}, {T}, {Q}, {BW}]: bit-equal; walks: {ends}")
+        return out
+    ms9 = cuda_ms(lambda: bc.nw_moves_banded(cw, tl, fr, ql, r0, r1, T, Q, BW))
+    ms10 = cuda_ms(lambda: bc.traceback_banded(*want, ql, fr, wt, T, Q, BW))
+    dev9 = device_ms(lambda: bc.nw_moves_banded(cw, tl, fr, ql, r0, r1, T, Q, BW),
+                     "nw_moves_banded_kernel")
+    dev10 = device_ms(lambda: bc.traceback_banded(*want, ql, fr, wt, T, Q, BW),
+                      "traceback_banded_kernel")
+    b9, by9, _ = banded_forward_bound(tl, B, T, Q, BW)
+    b10, by10, _ = banded_walk_bound(steps, ww[0], ww[2], B, T)
+    log(f"K9/K10 {name} [B, T, Q, BW] = [{B}, {T}, {Q}, {BW}]: bit-equal; walks: {ends}; "
+        f"K9 {ms9:.4f} ms (device {fmt_ms(dev9)}), bound {b9:.4f} ms by {by9}; K10 "
+        f"{ms10:.4f} ms (device {fmt_ms(dev10)}), bound {b10:.4f} ms by {by10}")
+    out.update({"K9": {"ms": ms9, "device_ms": dev9, "bound_ms": b9, "bound_by": by9},
+                "K10": {"ms": ms10, "device_ms": dev10, "bound_ms": b10, "bound_by": by10}})
+    return out
+
+
+def phase_widths(device) -> dict:
+    """Phase 13(a): K3/K4 at every band width raven_tpu takes up to 512 (a
+    multiple of 16), bit for bit, on 16 windows of 120 bases with 30
+    fragments each at t_pad 160 (the plain versions loop over T rows), and
+    timed at BAND_WIDTHS on the bank's first 128 windows (with insertion
+    runs across the strips); K9/K10 at BANDED_Q_PADS (bands of 128 and
+    256, some past the fragment) on the K2 rows cut to each, bit for bit,
+    the bank chunk timed.  Returns {"band": [...], "banded": [...]} for
+    the kernels line."""
+    from raven_tpu_torch.utils.synth import make_windows
+
+    windows, _ = make_windows(512, 500, 30, np.random.default_rng(21))
+    short, _ = make_windows(16, 120, 30, np.random.default_rng(21))
+    band = []
+    for BW in BAND_SWEEP:
+        check_band(device, band_layout(short, BW, q_pad=240, T=160), BW,
+                   f"16 windows of 120 bases, BW {BW}", timed=False)
+    log(f"K3/K4 at every BW in {BAND_SWEEP[0]}..{BAND_SWEEP[-1]} step 16 on 16 windows of "
+        f"120 bases at T = 160: bit-equal")
+    for BW in BAND_WIDTHS:
+        band.append(check_band(device, band_layout(windows[:128], BW), BW,
+                               f"bank group, BW {BW}", timed=True))
+        band.append(check_band(device, band_layout(insertion_runs(windows[256:384]), BW), BW,
+                               f"insertion runs across strips, BW {BW}", timed=False))
+    banded = []
+    for q_pad in BANDED_Q_PADS:
+        for i, (name, arrays) in enumerate(banded_width_cases(q_pad)):
+            banded.append(check_banded(device, arrays, name, timed=i == 0))
+    return {"band": band, "banded": banded}
+
+
+def phase_switches(device, work_dir, draft, pol) -> dict:
+    """Phase 13(b): `-p 2 --device-poa-batches 8` on phase 4's reads with
+    Polisher.CONSENSUS_ENGINE = "shiftband" and CONSENSUS_ITERS = 2 (the
+    counterparts of raven_tpu's RAVEN_TPU_CONSENSUS_ENGINE=shiftband and
+    RAVEN_TPU_CONSENSUS_ITERS=2): the shift-banded consensus on the card in
+    both rounds, K3 and K4 launched in each, K2 in none; the polish gate;
+    its wall beside phase 9's."""
+    from raven_tpu_torch.ops import band_cuda, consensus_band
+    from raven_tpu_torch.polish.polisher import Polisher
+
+    per_call = []
+    inner = consensus_band.band_window_consensus
+
+    def counted(*args, **kwargs):
+        before = dict(band_cuda.LAUNCHES)
+        out = inner(*args, **kwargs)
+        per_call.append({k: band_cuda.LAUNCHES[k] - before[k] for k in before})
+        return out
+
+    flags = ("-p", "2", "--device-poa-batches", "8", "-t", str(os.cpu_count()))
+    consensus_band.band_window_consensus = counted
+    Polisher.CONSENSUS_ENGINE, Polisher.CONSENSUS_ITERS = "shiftband", 2
+    try:
+        run = polish_run(device, work_dir, draft, flags)
+    finally:
+        consensus_band.band_window_consensus = inner
+        Polisher.CONSENSUS_ENGINE, Polisher.CONSENSUS_ITERS = None, 4
+    engines = [r["engine"] for r in run["polish_rounds"]]
+    require(engines == ["device", "device"], f"polish engines {engines}")
+    require(len(per_call) == 2 and all(
+        c["band_forward"] > 0 and c["mask_walk_votes"] > 0 for c in per_call),
+        f"K3/K4 launches by round {per_call}: not both rounds on the shift-banded engine")
+    require(run["k2_launches"] == 0, f"the shift-banded route launched K2 {run['k2_launches']} "
+            "times")
+    log(f"  CONSENSUS_ENGINE shiftband, CONSENSUS_ITERS 2 with --device-poa-batches 8: "
+        f"K3/K4 launches by round " + ", ".join(
+            f"{c['band_forward']}/{c['mask_walk_votes']}" for c in per_call)
+        + f", K2 {run['k2_launches']}; polish {run['polish_s']:.3f} s against phase 9's "
+        f"{pol['polish_s']:.3f} s (full NW, 4 iterations)")
+    run["per_round"] = per_call
+    return run
+
+
+def phase_budget() -> dict:
+    """Phase 13(c): the index-batch budget for an index on the card
+    (graph/construct.py::_index_batch_bytes) by default, for the host index
+    (MinimizerIndex.DEVICE_MAP off) and under a budget set above the clamp
+    (construct.INDEX_BATCH_BYTES): raven_tpu's 2,174,327,193, 2^32 and the
+    budget set, as tests/test_misc.py::test_streaming_index_batch_clamp
+    holds them."""
+    import torch
+
+    from raven_tpu_torch.graph import construct
+
+    cuda = torch.device("cuda")
+    out = {"default": construct._index_batch_bytes(cuda),
+           "host_index": construct._index_batch_bytes(cuda, device_map=False)}
+    saved = construct.INDEX_BATCH_BYTES
+    construct.INDEX_BATCH_BYTES = 3 << 30
+    try:
+        out["explicit"] = construct._index_batch_bytes(cuda)
+    finally:
+        construct.INDEX_BATCH_BYTES = saved
+    require(out == {"default": 2_174_327_193, "host_index": 1 << 32, "explicit": 3 << 30},
+            f"index-batch budgets on the card {out}")
+    log(f"index-batch budget on the card: default {out['default']}, host index "
+        f"{out['host_index']}, explicit {out['explicit']} (raven_tpu's)")
+    return out
 
 
 @contextlib.contextmanager
@@ -2376,6 +2648,14 @@ def run() -> dict:
     ent = phase_entry(device, smi)
     dry = phase_dryrun(device, smi)
     met = phase_metrics(device, smi, reads115, mp["reads"])
+    wid = phase_widths(device)
+    sw = phase_switches(device, work, main_path["contigs"][0], pol)
+    phase_budget()
+
+    def widths(cases, kernel):
+        # a timed case's measurements, the other cases' shapes: all bit-equal
+        return [{"case": c["case"], "shape": c["shape"], "max_abs_err": c["max_abs_err"],
+                 **c.get(kernel, {})} for c in cases]
 
     kernels = [{
         "name": "segment_sketch",
@@ -2415,6 +2695,7 @@ def run() -> dict:
         "launches_mesh_polish_cli": pol_mesh["k2_launches"],
         "launches_entry": ent["launches"],
         "launches_dryrun": dry["launches"]["K2"],
+        "launches_shiftband_polish": sw["k2_launches"],
         "equal": True,
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
@@ -2436,6 +2717,7 @@ def run() -> dict:
         "launches": dflt["k3_launches"],
         "launches_mesh_votes": mv["shift-banded"]["launches"]["K3"],
         "launches_dryrun": dry["launches"]["K3"],
+        "launches_shiftband_polish": sw["k3_launches"],
         "equal": True,
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
@@ -2445,6 +2727,8 @@ def run() -> dict:
         "bound_by": k3["bound_by"],
         "library_ms": None,
         "shape": k3["shape"],
+        "widths_bit_equal": list(BAND_SWEEP),
+        "widths": widths(wid["band"], "K3"),
     }, {
         "name": "band_walk_votes",
         "launches_multiprocess": {r: n["K4"] for r, n in mp["launches"].items()},
@@ -2454,6 +2738,7 @@ def run() -> dict:
         "launches": dflt["k4_launches"],
         "launches_mesh_votes": mv["shift-banded"]["launches"]["K4"],
         "launches_dryrun": dry["launches"]["K4"],
+        "launches_shiftband_polish": sw["k4_launches"],
         "equal": True,
         "max_abs_err": k4["max_abs_err"],
         "ms": k4["ms"],
@@ -2463,6 +2748,8 @@ def run() -> dict:
         "bound_by": k4["bound_by"],
         "library_ms": None,
         "shape": k4["shape"],
+        "widths_bit_equal": list(BAND_SWEEP),
+        "widths": widths(wid["band"], "K4"),
     }, {
         "name": "nw_moves_banded",
         "launches_multiprocess": {r: n["K9"] for r, n in mp["launches"].items()},
@@ -2481,6 +2768,7 @@ def run() -> dict:
         "library_ms": None,
         "shape": k9["shape"],
         "k2_ms_same_chunk": k9["k2_ms"],
+        "widths": widths(wid["banded"], "K9"),
     }, {
         "name": "traceback_banded",
         "launches_multiprocess": {r: n["K10"] for r, n in mp["launches"].items()},
@@ -2498,6 +2786,7 @@ def run() -> dict:
         "bound_by": k10["bound_by"],
         "library_ms": None,
         "shape": k10["shape"],
+        "widths": widths(wid["banded"], "K10"),
     }]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -116,6 +116,20 @@
 //     select into the lane that writes the row; the block boundaries carry
 //     the chunk schedule and the writes.  The 8 lanes also copy the chunks.  The best row comes from the block's 16 fragments read
 //     together: 64 contiguous bytes an end-score row.
+//   * Other widths (raven_tpu takes any multiple of 16; these kernels up to
+//     512).  BW = 256 has its own instantiation, as above.  Any other width
+//     keeps 16 band lanes a lane: K3 gives a fragment a group of GP = 16
+//     lanes up to BW = 256 and a whole warp (GP = 32) above, 32 / GP
+//     fragments a warp, and the width is a run-time value.  The lanes of a
+//     group past BW / 16 take part in the shuffles and votes but hold no
+//     band lane: they read and store nothing, the last band lane takes NEG
+//     from its right as at 256, and they never keep the closure's loop
+//     going.  K4 is the same walk with the width's
+//     BW / 16 words a move row; a row of 4 * (BW / 16) bytes is staged 16
+//     bytes a copy when BW is a multiple of 64, else 4.  BW = 256 keeps its
+//     own staging routine: the general one, even with the width fixed at
+//     256, compiled to 54 more SASS instructions in the walk's loop and
+//     cost 5-6% of K4's device time on an H100.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // (see raven_tpu_torch/csrc/__init__.py); each launcher returns the CUDA
@@ -132,37 +146,31 @@ constexpr int kMatch = 3;
 constexpr int kMismatch = -5;
 constexpr int kGap = -4;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int BW = 256;            // band lanes
-constexpr int kWarps = 4;          // K3: warps a block
-constexpr int kFwdGroup = 16;      // K3: lanes of the warp a fragment takes
-constexpr int kFwdFrags = 32 / kFwdGroup;
-constexpr int C = BW / kFwdGroup;  // K3: band lanes a lane holds
-static_assert(C == 16, "K3 stores one 16-lane move word a lane");
-constexpr int kHalf = BW / 2;
-constexpr int kWords = BW / 16;    // move words a row
+constexpr int C = 16;              // K3: band lanes a lane holds, one move word
+constexpr int kMaxBW = 512;        // the widest band taken: 32 lanes of 16
 // the closure's carry into lane 0: never wins, and never wraps when GAP is
 // added a band's width of times
 constexpr int kNone = -(1 << 30);
-// a lane whose columns are all past qlen + 1 holds values within 8 of NEG:
-// a carry above kHigh makes every cell left up to the band's end
-constexpr int kHigh = kNeg + 3 - kGap * BW;
-constexpr int kGuess = 0;          // the high guess (any value above kHigh)
+constexpr int kGuess = 0;          // the high guess (any value above high_of(BW))
 constexpr int kChunk = 32;         // move rows a K4 stage holds
-constexpr int kChunkBytes = kChunk * kWords * 4;
 constexpr int kGroup = 8;          // K4: lanes of the warp a fragment takes
 constexpr int kFragsPerWarp = 32 / kGroup;
 constexpr int kWalkWarps = 4;      // K4: warps a block
 constexpr int kWalkFrags = kWalkWarps * kFragsPerWarp;
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
+constexpr int kFwdWarps = 4;       // K3: warps a block
+// a lane whose columns are all past qlen + 1 holds values within 8 of NEG:
+// a carry above this makes every cell left up to the band's end
+__host__ __device__ constexpr int high_of(int bw) { return kNeg + 3 - kGap * bw; }
 
 // shared memory a fragment uses: K3 its base codes [T + BW + 1] and the
 // consensus codes [T]; K4 two move chunks and the fragment row
-__host__ __device__ constexpr int forward_bytes(int T) {
-  return round16(T + BW + 1) + round16(T);
+__host__ __device__ constexpr int forward_bytes(int T, int bw) {
+  return round16(T + bw + 1) + round16(T);
 }
-__host__ __device__ constexpr int walk_bytes(int T) {
-  return 2 * kChunkBytes + round16(T + BW + 1);
+__host__ __device__ constexpr int walk_bytes(int T, int bw) {
+  return 2 * kChunk * (bw / 4) + round16(T + bw + 1);
 }
 
 // bit i of a 16-bit x to bit 2i
@@ -193,35 +201,49 @@ __device__ __forceinline__ int pick(const int (&v)[C], int k) {
   return pick_level<C / 2>(t, k);
 }
 
-__global__ void __launch_bounds__(32 * kWarps)
+// GP lanes of a warp take a fragment (16 or 32), 32 / GP fragments a
+// warp; BWT is the band's width when it is fixed at compile time (BW = 256,
+// GP = 16), else 0 and the width is bw_arg, BW / 16 <= GP lanes active.
+template <int GP, int BWT>
+__global__ void __launch_bounds__(32 * kFwdWarps)
 band_forward_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict__ t_lens,
                     const uint8_t* __restrict__ fw_sh, const int32_t* __restrict__ q_lens,
                     const int32_t* __restrict__ r0s, uint32_t* __restrict__ moves,
                     int32_t* __restrict__ ends, int32_t* __restrict__ row0, long long B,
-                    int T) {
+                    int T, int bw_arg) {
+  static_assert(BWT == 0 || BWT == GP * C, "a fixed width fills its lanes");
+  constexpr int kFwdFrags = 32 / GP;
+  const int BW = BWT != 0 ? BWT : bw_arg;
+  const int G = BW / C;         // the lanes of a fragment that hold band lanes
+  const int kHalf = BW / 2;
+  const int kWords = BW / 16;   // move words a row
+  const int kHigh = high_of(BW);
   extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int g = lane / kFwdGroup, sub = lane % kFwdGroup;
-  const long long bw0 = (static_cast<long long>(blockIdx.x) * kWarps + warp) * kFwdFrags;
+  const int g = lane / GP, sub = lane % GP;
+  // the lanes past G take part in the warp's shuffles and votes, read and
+  // store nothing, and never hold the closure's loop
+  const bool live = BWT != 0 || sub < G;
+  const long long bw0 = (static_cast<long long>(blockIdx.x) * kFwdWarps + warp) * kFwdFrags;
   if (bw0 >= B) return;  // the whole warp
   const long long b = bw0 + g;
   const bool valid = b < B;
   const int SW = T + BW + 1;
-  uint8_t* s_fc = smem + static_cast<size_t>(warp * kFwdFrags + g) * forward_bytes(T);
+  uint8_t* s_fc = smem + static_cast<size_t>(warp * kFwdFrags + g) * forward_bytes(T, BW);
   uint8_t* s_tc = s_fc + round16(SW);
   if (valid) {
     const uint8_t* f_row = fw_sh + b * SW;
-    for (int i = sub; i < SW; i += kFwdGroup) s_fc[i] = f_row[i] & 3;
+    for (int i = sub; i < SW; i += GP) s_fc[i] = f_row[i] & 3;
     const int32_t* c_row = cw + b * T;
-    for (int t = sub; t < T; t += kFwdGroup) {
+    for (int t = sub; t < T; t += GP) {
       const int c = c_row[t];
       // a code outside 0-3 never equals a fragment base
       s_tc[t] = (c >= 0 && c <= 3) ? static_cast<uint8_t>(c) : 0xFF;
     }
   } else {
-    for (int i = sub; i < SW; i += kFwdGroup) s_fc[i] = 0;
-    for (int t = sub; t < T; t += kFwdGroup) s_tc[t] = 0xFF;
+    for (int i = sub; i < SW; i += GP) s_fc[i] = 0;
+    for (int t = sub; t < T; t += GP) s_tc[t] = 0xFF;
   }
   __syncwarp();
 
@@ -229,14 +251,14 @@ band_forward_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict__ 
   const int tl = valid ? t_lens[b] : 0;
   const int r0 = valid ? r0s[b] : 0;
   const int u0 = sub * C;
-  const bool last_sub = sub == kFwdGroup - 1;
+  const bool last_sub = sub == G - 1;
   int prev[C];
   uint32_t fb = 0;  // the bases of my band lanes on the next DP row, 2 bits each
 #pragma unroll
   for (int i = 0; i < C; ++i) {
     const int j = u0 + i - kHalf - r0;
     prev[i] = (j >= 0 && j <= ql) ? j * kGap : kNeg;
-    fb |= static_cast<uint32_t>(s_fc[1 + u0 + i]) << (2 * i);
+    if (live) fb |= static_cast<uint32_t>(s_fc[1 + u0 + i]) << (2 * i);
   }
   if (valid && sub == 0) row0[b] = ql * kGap;
   const size_t row_words = static_cast<size_t>(B) * kWords;
@@ -246,8 +268,8 @@ band_forward_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict__ 
     const int jb = r + 1 + u0 - kHalf - r0;  // j of my first lane on DP row r + 1
     const uint32_t tch = s_tc[r];
     // the next lane's first value, and its first base (my last on the next row)
-    const int up_next = __shfl_down_sync(kFull, prev[0], 1, kFwdGroup);
-    const uint32_t nb_in = __shfl_down_sync(kFull, fb & 3u, 1, kFwdGroup);
+    const int up_next = __shfl_down_sync(kFull, prev[0], 1, GP);
+    const uint32_t nb_in = __shfl_down_sync(kFull, fb & 3u, 1, GP);
     const int up_in = last_sub ? kNeg : up_next;
     const uint32_t nb = last_sub ? s_fc[r + 1 + BW] : nb_in;
     const uint32_t x = fb ^ (tch * 0x55555555u);
@@ -281,11 +303,11 @@ band_forward_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict__ 
     int last = past && !all_past ? kGuess : run;
     int carry;
     while (true) {
-      int c = __shfl_up_sync(kFull, last, 1, kFwdGroup);
+      int c = __shfl_up_sync(kFull, last, 1, GP);
       if (sub == 0) c = kNone;
       int nl = __viaddmax_s32(c, C * kGap, run);
       if (past && c > kHigh) nl = kGuess;
-      const bool changed = nl != last;
+      const bool changed = live && nl != last;
       carry = c;
       last = nl;
       if (!__any_sync(kFull, changed)) break;
@@ -300,7 +322,7 @@ band_forward_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict__ 
       d[i] = run;
       left_bits |= static_cast<uint32_t>(run != e[i]) << i;
     }
-    if (valid) {
+    if (valid && live) {
       mv_out[static_cast<size_t>(r) * row_words] =
           spread2(up_bits & ~left_bits) | (spread2(left_bits) << 1);
     }
@@ -334,6 +356,10 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
 // x, held in a register from here on: the compiler may not recompute it
 __device__ __forceinline__ unsigned in_register(unsigned x) {
   asm volatile("" : "+r"(x));
@@ -362,12 +388,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Stage chunk c of a fragment's moves, rows 32c .. 32c + 31 (those < T),
 // into buffer c & 1 (slot m & 31 holds row m); the group's 8 lanes copy
 // 16 bytes at a time.  Every lane commits, so the warp's groups stay counted
-// alike.
+// alike.  This is the BW = 256 form (16 move words, 64 bytes a row), kept
+// as it was written for that width: stage_chunk_any below takes any width.
 __device__ __forceinline__ void stage_chunk(uint8_t* s_mv, const uint32_t* mv_frag,
                                             size_t row_words, int c, int T, bool need,
                                             int sub) {
   if (need && c >= 0) {
-    uint8_t* dst = s_mv + (c & 1) * kChunkBytes;
+    uint8_t* dst = s_mv + (c & 1) * (kChunk * 64);
 #pragma unroll 4
     for (int k = sub; k < kChunk * 4; k += kGroup) {
       const int slot = k >> 2, part = k & 3;
@@ -378,11 +405,56 @@ __device__ __forceinline__ void stage_chunk(uint8_t* s_mv, const uint32_t* mv_fr
   cp_async_commit();
 }
 
+// stage_chunk at a row of kWords move words, kCopy bytes a copy (16 when a
+// row is a multiple of 16 bytes, BW a multiple of 64; else 4).
+template <int kCopy>
+__device__ __forceinline__ void stage_chunk_any(uint8_t* s_mv, const uint32_t* mv_frag,
+                                                size_t row_words, int c, int T, bool need,
+                                                int sub, int kWords) {
+  if (need && c >= 0) {
+    const int parts = kWords * 4 / kCopy;  // copies a row
+    uint8_t* dst = s_mv + (c & 1) * (kChunk * kWords * 4);
+    for (int k = sub; k < kChunk * parts; k += kGroup) {
+      const int slot = k / parts, part = k % parts;
+      const int m = kChunk * c + slot;
+      if (m < T) {
+        uint8_t* to = dst + slot * (kWords * 4) + part * kCopy;
+        const uint32_t* from = mv_frag + m * row_words + part * (kCopy / 4);
+        if constexpr (kCopy == 16) {
+          cp_async16(to, from);
+        } else {
+          cp_async4(to, from);
+        }
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// The walk's staging at its width: BW = 256's own form, or any width's.
+template <int BWT, int kCopy>
+__device__ __forceinline__ void stage(uint8_t* s_mv, const uint32_t* mv_frag, size_t row_words,
+                                      int c, int T, bool need, int sub, int kWords) {
+  if constexpr (BWT == 256) {
+    stage_chunk(s_mv, mv_frag, row_words, c, T, need, sub);
+  } else {
+    stage_chunk_any<kCopy>(s_mv, mv_frag, row_words, c, T, need, sub, kWords);
+  }
+}
+
+// BWT is the band's width when it is fixed at compile time (256), else 0
+// and the width is bw_arg; kCopy as for stage_chunk_any.
+template <int BWT, int kCopy>
 __global__ void __launch_bounds__(32 * kWalkWarps)
 band_walk_kernel(const uint32_t* __restrict__ moves, const int32_t* __restrict__ ends,
                  const int32_t* __restrict__ row0, const uint8_t* __restrict__ fw_sh,
                  const int32_t* __restrict__ q_lens, const int32_t* __restrict__ r0s,
-                 int32_t* __restrict__ votes, int32_t* __restrict__ ins, long long B, int T) {
+                 int32_t* __restrict__ votes, int32_t* __restrict__ ins, long long B, int T,
+                 int bw_arg) {
+  const int BW = BWT != 0 ? BWT : bw_arg;
+  const int kHalf = BW / 2;
+  const int kWords = BW / 16;              // move words a row
+  const int kChunkBytes = kChunk * kWords * 4;
   extern __shared__ __align__(16) uint8_t smem[];
   // [warp][fragment of the block]
   __shared__ int s_best[kWalkWarps][kWalkFrags], s_best_r[kWalkWarps][kWalkFrags];
@@ -438,23 +510,25 @@ band_walk_kernel(const uint32_t* __restrict__ moves, const int32_t* __restrict__
   const int r0 = valid ? r0s[b] : 0;
 
   const int SW = T + BW + 1;
-  uint8_t* s_warp = smem + static_cast<size_t>(warp) * kFragsPerWarp * walk_bytes(T);
-  uint8_t* s_mv = s_warp + g * walk_bytes(T);
+  const int WB = walk_bytes(T, BW);
+  uint8_t* s_warp = smem + static_cast<size_t>(warp) * kFragsPerWarp * WB;
+  uint8_t* s_mv = s_warp + g * WB;
   uint8_t* s_fw = s_mv + 2 * kChunkBytes;
   const size_t row_words = static_cast<size_t>(B) * kWords;
   const uint32_t* mv_frag = moves + (valid ? b : 0) * kWords;
   // the top two chunks that hold a row the walk can reach (< t0), under the
   // fragment rows' copy
   const int ctop = (T - 1) / kChunk;
-  stage_chunk(s_mv, mv_frag, row_words, ctop, T, valid && kChunk * ctop <= t0 - 1, sub);
-  stage_chunk(s_mv, mv_frag, row_words, ctop - 1, T, valid && kChunk * (ctop - 1) <= t0 - 1,
-              sub);
+  stage<BWT, kCopy>(s_mv, mv_frag, row_words, ctop, T, valid && kChunk * ctop <= t0 - 1, sub,
+                    kWords);
+  stage<BWT, kCopy>(s_mv, mv_frag, row_words, ctop - 1, T,
+                    valid && kChunk * (ctop - 1) <= t0 - 1, sub, kWords);
   // the warp's fragment rows, one after another: [4, SW] bytes from row b
   for (int gg = 0; gg < kFragsPerWarp; ++gg) {
     const long long bg = b0 + warp * kFragsPerWarp + gg;
     if (bg >= B) break;
     const uint8_t* f_row = fw_sh + bg * SW;
-    uint8_t* dst = s_warp + gg * walk_bytes(T) + 2 * kChunkBytes;
+    uint8_t* dst = s_warp + gg * WB + 2 * kChunkBytes;
     for (int i = lane; i < SW; i += 32) dst[i] = f_row[i];
   }
   __syncwarp();
@@ -475,8 +549,8 @@ band_walk_kernel(const uint32_t* __restrict__ moves, const int32_t* __restrict__
     if (k == ktop || k % kBlocks == kBlocks - 1) {  // entering chunk c (the warp together)
       if (k != ktop) {
         __syncwarp();  // every lane is done with the buffer chunk c - 1 takes
-        stage_chunk(s_mv, mv_frag, row_words, c - 1, T,
-                    valid && !walked && kChunk * (c - 1) <= t0 - 1, sub);
+        stage<BWT, kCopy>(s_mv, mv_frag, row_words, c - 1, T,
+                          valid && !walked && kChunk * (c - 1) <= t0 - 1, sub, kWords);
       }
       cp_async_wait_one();  // chunk c has landed (c - 1 may be in flight)
       __syncwarp();
@@ -570,64 +644,76 @@ int launch_setup(Kernel kernel, long long B, int per_block, long long smem, unsi
   return 0;
 }
 
+template <int GP, int BWT>
 int launch_forward(const void* cw, const void* t_lens, const void* fw_sh, const void* q_lens,
                    const void* r0, void* moves, void* ends, void* row0, long long B, int T,
-                   cudaStream_t stream) {
-  const long long smem = static_cast<long long>(kWarps) * kFwdFrags * forward_bytes(T);
+                   int BW, cudaStream_t stream) {
+  constexpr int per_block = kFwdWarps * (32 / GP);
+  const long long smem = static_cast<long long>(per_block) * forward_bytes(T, BW);
   unsigned blocks = 0;
-  const int err = launch_setup(band_forward_kernel, B, kWarps * kFwdFrags, smem, &blocks);
+  const int err = launch_setup(band_forward_kernel<GP, BWT>, B, per_block, smem, &blocks);
   if (err != 0) return err;
-  band_forward_kernel<<<blocks, 32 * kWarps, static_cast<size_t>(smem), stream>>>(
+  band_forward_kernel<GP, BWT><<<blocks, 32 * kFwdWarps, static_cast<size_t>(smem), stream>>>(
       static_cast<const int32_t*>(cw), static_cast<const int32_t*>(t_lens),
       static_cast<const uint8_t*>(fw_sh), static_cast<const int32_t*>(q_lens),
       static_cast<const int32_t*>(r0), static_cast<uint32_t*>(moves),
-      static_cast<int32_t*>(ends), static_cast<int32_t*>(row0), B, T);
+      static_cast<int32_t*>(ends), static_cast<int32_t*>(row0), B, T, BW);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BWT, int kCopy>
 int launch_walk(const void* moves, const void* ends, const void* row0, const void* fw_sh,
                 const void* q_lens, const void* r0, void* votes, void* ins, long long B, int T,
-                cudaStream_t stream) {
-  const long long smem = static_cast<long long>(kWalkFrags) * walk_bytes(T);
+                int BW, cudaStream_t stream) {
+  const long long smem = static_cast<long long>(kWalkFrags) * walk_bytes(T, BW);
   unsigned blocks = 0;
-  const int err = launch_setup(band_walk_kernel, B, kWalkFrags, smem, &blocks);
+  const int err = launch_setup(band_walk_kernel<BWT, kCopy>, B, kWalkFrags, smem, &blocks);
   if (err != 0) return err;
-  band_walk_kernel<<<blocks, 32 * kWalkWarps, static_cast<size_t>(smem), stream>>>(
+  band_walk_kernel<BWT, kCopy><<<blocks, 32 * kWalkWarps, static_cast<size_t>(smem), stream>>>(
       static_cast<const uint32_t*>(moves), static_cast<const int32_t*>(ends),
       static_cast<const int32_t*>(row0), static_cast<const uint8_t*>(fw_sh),
       static_cast<const int32_t*>(q_lens), static_cast<const int32_t*>(r0),
-      static_cast<int32_t*>(votes), static_cast<int32_t*>(ins), B, T);
+      static_cast<int32_t*>(votes), static_cast<int32_t*>(ins), B, T, BW);
   return static_cast<int>(cudaGetLastError());
 }
+
+bool supported(int T, int BW) { return T >= 1 && BW >= 16 && BW <= kMaxBW && BW % 16 == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K3 on `stream` over B fragments at BW = 256: cw [B, T], t_lens,
-// q_lens, r0 [B] int32, fw_sh [B, T + 257] uint8; moves [T, B, 16], ends
-// [T, B] and row0 [B] int32 out.  Returns the CUDA error code of the launch
-// (0 on success).
+// Launches K3 on `stream` over B fragments at a band of BW lanes (a
+// multiple of 16 up to 512): cw [B, T], t_lens, q_lens, r0 [B] int32, fw_sh
+// [B, T + BW + 1] uint8; moves [T, B, BW / 16], ends [T, B] and row0 [B]
+// int32 out.  BW = 256 runs its own instantiation, 16 lanes a fragment;
+// another width runs BW / 16 lanes of a 16-lane group up to 256, of a
+// warp above.  Returns the
+// CUDA error code of the launch (0 on success).
 int raven_band_forward_launch(const void* cw, const void* t_lens, const void* fw_sh,
                               const void* q_lens, const void* r0, void* moves, void* ends,
-                              void* row0, long long B, int T, void* stream) {
+                              void* row0, long long B, int T, int BW, void* stream) {
   if (B == 0) return 0;
-  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_forward(cw, t_lens, fw_sh, q_lens, r0, moves, ends, row0, B, T,
-                        static_cast<cudaStream_t>(stream));
+  if (!supported(T, BW)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (BW == 256) return launch_forward<16, 256>(cw, t_lens, fw_sh, q_lens, r0, moves, ends, row0, B, T, BW, st);
+  if (BW < 256) return launch_forward<16, 0>(cw, t_lens, fw_sh, q_lens, r0, moves, ends, row0, B, T, BW, st);
+  return launch_forward<32, 0>(cw, t_lens, fw_sh, q_lens, r0, moves, ends, row0, B, T, BW, st);
 }
 
-// Launches K4 on `stream` over B fragments at BW = 256: K3's moves, ends and
-// row0, with fw_sh, q_lens and r0 as K3 took them; votes [B, T] and ins [B,
-// T + 1] int32 out.  Returns the CUDA error code of the launch (0 on
-// success).
+// Launches K4 on `stream` over B fragments at a band of BW lanes: K3's
+// moves, ends and row0, with fw_sh, q_lens and r0 as K3 took them; votes
+// [B, T] and ins [B, T + 1] int32 out.  Returns the CUDA error code of the
+// launch (0 on success).
 int raven_band_walk_launch(const void* moves, const void* ends, const void* row0,
                            const void* fw_sh, const void* q_lens, const void* r0, void* votes,
-                           void* ins, long long B, int T, void* stream) {
+                           void* ins, long long B, int T, int BW, void* stream) {
   if (B == 0) return 0;
-  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_walk(moves, ends, row0, fw_sh, q_lens, r0, votes, ins, B, T,
-                     static_cast<cudaStream_t>(stream));
+  if (!supported(T, BW)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (BW == 256) return launch_walk<256, 16>(moves, ends, row0, fw_sh, q_lens, r0, votes, ins, B, T, BW, st);
+  if (BW % 64 == 0) return launch_walk<0, 16>(moves, ends, row0, fw_sh, q_lens, r0, votes, ins, B, T, BW, st);
+  return launch_walk<0, 4>(moves, ends, row0, fw_sh, q_lens, r0, votes, ins, B, T, BW, st);
 }
 
 const char* raven_cuda_error_string(int code) {

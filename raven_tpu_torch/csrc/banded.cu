@@ -19,8 +19,9 @@
 // each row regathers the previous one at its own start: lane i reads the
 // previous row's lanes i + d (up) and i + d - 1 (diag), NEG outside
 // [0, BW).  Then, as in K2 and K3:
-//   diag = prev[i + d - 1] + (frags[j - 1] == cw[r] ? 3 : -5), up =
-//   prev[i + d] - 4, e = max, move diag when diag >= up;
+//   diag = prev[i + d - 1] + (frags[min(j, Q) - 1] == cw[r] ? 3 : -5), up =
+//   prev[i + d] - 4, e = max, move diag when diag >= up (with Q + 1 < BW
+//   the band runs past the fragment, and those columns read its last code);
 //   column j == 0 restarts at e = 0 with move up, before the closure;
 //   closed = cummax over i of (e + 4i), less 4i; move left, and the value
 //   closed, only when closed > e (lane 0 takes nothing from its left);
@@ -145,6 +146,16 @@
 //     primitives it will store, and stores them when the walk leaves the
 //     block: every primitive is written once (the rows above the walk
 //     first, the rows below where it ended last).
+//   * The other width.  raven_tpu's engine takes BW = min(256, pow2(q_pad)),
+//     so 128 for q_pad <= 128.  Both kernels are instantiated for 128 and
+//     256 (Band<BW>): at 128 K9 gives a fragment 8 lanes, four fragments a
+//     warp, its row batches are 8 rows, kHigh follows BW, and the regather
+//     through shared memory clamps at the padded row's end whatever the
+//     step; K10's move rows are 32 bytes.  With Q + 1 < BW (the band wider
+//     than the fragment, at either width) the band starts stay at 0, the
+//     packed fragment holds the band's BW / 16 + 1 words, and the columns
+//     past Q carry the fragment's last code as raven_tpu's clipped gather
+//     gives them.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // (see raven_tpu_torch/csrc/__init__.py); each launcher returns the CUDA
@@ -161,44 +172,55 @@ constexpr int kMatch = 3;
 constexpr int kMismatch = -5;
 constexpr int kGap = -4;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int BW = 256;           // band lanes
-constexpr int kWords = BW / 16;   // move words a row
 constexpr int kMaxQ = 8192;       // the longest padded fragment taken
 // the closure's carry into lane 0: never wins, and never wraps when GAP is
 // added a band's width of times
 constexpr int kNone = -(1 << 30);
-// a lane whose columns are all past qlen + 1 holds values within 8 of NEG:
-// a carry above kHigh makes every cell left up to the band's end
-constexpr int kHigh = kNeg + 3 - kGap * BW;
 constexpr int kGuess = 0;         // the high guess (any value above kHigh)
-
-constexpr int kFwdGroup = 16;              // K9: lanes of the warp a fragment takes
-constexpr int C = BW / kFwdGroup;          // K9: band lanes a lane holds, one move word
-constexpr int kFwdWarps = 4;               // K9: warps a block
-constexpr int kFwdFrags = kFwdWarps * 32 / kFwdGroup;
+constexpr int C = 16;             // K9: band lanes a lane holds, one move word
+constexpr int kFwdWarps = 4;      // K9: warps a block
 
 constexpr int kChunk = 64;                 // K10: move rows, and fragment columns, a stage holds
-constexpr int kChunkBytes = kChunk * kWords * 4;
 constexpr int kStride = kChunk / 2;        // K10: walk steps between two staging points
 constexpr int kGroup = 8;                  // K10: lanes of the warp a fragment takes
 constexpr int kFragsPerWarp = 32 / kGroup;
 constexpr int kWalkWarps = 4;              // K10: warps a block
 constexpr int kWalkFrags = kWalkWarps * kFragsPerWarp;
-// K10's shared memory a fragment, two stages of each: move rows, their band
-// starts, the fragment's codes and its weights
-constexpr int kWalkBytes = 2 * kChunkBytes + 3 * 2 * kChunk * 4;
+
+// What depends on the band's width, BW = 256 (16 lanes a fragment, two
+// fragments a warp) or 128 (8 lanes, four a warp): raven_tpu's
+// min(256, pow2(q_pad)) gives only these two.
+template <int BW>
+struct Band {
+  static_assert(BW == 128 || BW == 256, "the anchored band is 128 or 256 lanes");
+  static constexpr int kWords = BW / 16;                    // move words a row
+  static constexpr int kFwdGroup = BW / C;                  // K9: lanes of the warp a fragment takes
+  static constexpr int kFwdFrags = kFwdWarps * 32 / kFwdGroup;
+  // a lane whose columns are all past qlen + 1 holds values within 8 of
+  // NEG: a carry above kHigh makes every cell left up to the band's end
+  static constexpr int kHigh = kNeg + 3 - kGap * BW;
+  static constexpr int kRowBytes = kWords * 4;              // K10: a move row
+  static constexpr int kChunkBytes = kChunk * kRowBytes;
+  // K10's shared memory a fragment, two stages of each: move rows, their
+  // band starts, the fragment's codes and its weights
+  static constexpr int kWalkBytes = 2 * kChunkBytes + 3 * 2 * kChunk * 4;
+};
 
 __host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
 // K9's packed fragment: words of 16 columns, column j at bits 2 (j % 16) of
 // word j / 16, and one more word for the funnel shift at the band's end
-__host__ __device__ constexpr int code_words(int Q) { return Q / 16 + 2; }
+// (with Q + 1 < BW, off to the band's end)
+__host__ __device__ constexpr int code_words(int Q, int bw) {
+  return Q / 16 + 2 > bw / 16 + 1 ? Q / 16 + 2 : bw / 16 + 1;
+}
 // K9's regather row: band lane s at rpad(s), one padding word every C
 __host__ __device__ constexpr int rpad(int s) { return s + s / C; }
 // words of shared memory a K9 fragment uses
-__host__ __device__ constexpr int forward_words(int Q) {
-  return round4(2 * code_words(Q)) + round4(rpad(BW) + 1);
+__host__ __device__ constexpr int forward_words(int Q, int bw) {
+  return round4(2 * code_words(Q, bw)) + round4(rpad(bw) + 1);
 }
 
+template <int BW>
 __device__ __forceinline__ int band_start(int r, int tl1, int r0, int span, int q, int hi) {
   const int row = min(r + 1, tl1);
   // a negative numerator clips to 0 whether the division floors or truncates
@@ -269,6 +291,7 @@ __device__ __forceinline__ uint32_t row_cells(const int (&p)[C], const int (&pd)
   return up_bits;
 }
 
+template <int BW>
 __global__ void __launch_bounds__(32 * kFwdWarps)
 nw_moves_banded_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict__ t_lens,
                        const int32_t* __restrict__ frags, const int32_t* __restrict__ q_lens,
@@ -276,6 +299,10 @@ nw_moves_banded_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict
                        uint32_t* __restrict__ moves, int32_t* __restrict__ offs,
                        int32_t* __restrict__ ends, int32_t* __restrict__ row0, long long B,
                        int T, int Q) {
+  constexpr int kWords = Band<BW>::kWords;
+  constexpr int kFwdGroup = Band<BW>::kFwdGroup;
+  constexpr int kFwdFrags = Band<BW>::kFwdFrags;
+  constexpr int kHigh = Band<BW>::kHigh;
   extern __shared__ __align__(16) uint32_t smem_fwd[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -287,8 +314,8 @@ nw_moves_banded_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict
   // inputs, and stores nothing
   const bool valid = bw0 + g < B;
   const long long b = valid ? bw0 + g : B - 1;
-  const int PW = code_words(Q);
-  uint32_t* s_code = smem_fwd + fl * forward_words(Q);  // 2-bit codes
+  const int PW = code_words(Q, BW);
+  uint32_t* s_code = smem_fwd + fl * forward_words(Q, BW);  // 2-bit codes
   uint32_t* s_base = s_code + PW;                        // 1 at a base (0-3)
   int* s_row = reinterpret_cast<int*>(s_code + round4(2 * PW));  // the regather row
 
@@ -297,9 +324,11 @@ nw_moves_banded_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict
     uint32_t code = 0, base = 0;
 #pragma unroll 4
     for (int k = 0; k < 16; ++k) {
-      const int j = 16 * w + k;  // column j reads fragment code j - 1
-      if (j >= 1 && j <= Q) {
-        const int f = f_row[j - 1];
+      // column j reads fragment code j - 1, past the fragment its last
+      // (raven_tpu's gather clips at Q)
+      const int j = 16 * w + k;
+      if (j >= 1) {
+        const int f = f_row[min(j, Q) - 1];
         if (f >= 0 && f <= 3) {
           code |= static_cast<uint32_t>(f) << (2 * k);
           base |= 1u << (2 * k);
@@ -320,11 +349,11 @@ nw_moves_banded_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict
   const int rows_w = __reduce_max_sync(kFull, static_cast<unsigned>(rows));  // the warp's
   // every row's band start: past the consensus, the last DP row's
   for (int r = sub; valid && r < T; r += kFwdGroup) {
-    offs[static_cast<size_t>(r) * B + b] = band_start(tl > 0 ? r : -1, tl1, r0, span, q, hi);
+    offs[static_cast<size_t>(r) * B + b] = band_start<BW>(tl > 0 ? r : -1, tl1, r0, span, q, hi);
   }
   if (valid && sub == 0) row0[b] = ql <= Q ? ql * kGap : kNeg;
 
-  int off_prev = band_start(-1, tl1, r0, span, q, hi);
+  int off_prev = band_start<BW>(-1, tl1, r0, span, q, hi);
   int prev[C];
 #pragma unroll
   for (int k = 0; k < C; ++k) {
@@ -347,7 +376,7 @@ nw_moves_banded_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict
       tc_batch = tc_next;
       const int rn = r + kFwdGroup + sub;
       tc_next = rn < rows ? c_row[rn] : 0;
-      off_batch = band_start(r + sub, tl1, r0, span, q, hi);
+      off_batch = band_start<BW>(r + sub, tl1, r0, span, q, hi);
     }
     const int tch = __shfl_sync(kFull, tc_batch, rs, kFwdGroup);
     const int off = __shfl_sync(kFull, off_batch, rs, kFwdGroup);
@@ -372,7 +401,7 @@ nw_moves_banded_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict
       mb = 0;
       for (int k = 0; k < C; ++k) {
         const int j = jb + k;
-        mb |= static_cast<uint32_t>((j >= 1 ? f_row[j - 1] : -1) == tch) << (2 * k);
+        mb |= static_cast<uint32_t>((j >= 1 ? f_row[min(j, Q) - 1] : -1) == tch) << (2 * k);
       }
     }
 
@@ -504,17 +533,20 @@ __device__ __forceinline__ uint32_t lds_u32(unsigned addr) {
 // (those < T), into buffer c & 1: row m's move words at slot m & 127 of the
 // moves, its band start at slot m & 127 of the band starts.  The warp's 32
 // lanes copy.
+template <int BW>
 __device__ __forceinline__ void stage_moves(uint8_t* s_frag, const uint32_t* mv_frag,
                                             const int32_t* off_frag, size_t row_words,
                                             long long B, int c, int T, int lane) {
-  uint8_t* dst = s_frag + (c & 1) * kChunkBytes;
+  constexpr int kRowBytes = Band<BW>::kRowBytes;
+  constexpr int kParts = kRowBytes / 16;  // 16-byte copies a row
+  uint8_t* dst = s_frag + (c & 1) * Band<BW>::kChunkBytes;
 #pragma unroll
-  for (int k = lane; k < kChunk * 4; k += 32) {
-    const int slot = k >> 2, part = k & 3;
+  for (int k = lane; k < kChunk * kParts; k += 32) {
+    const int slot = k / kParts, part = k % kParts;
     const int m = kChunk * c + slot;
-    if (m < T) cp_async16(dst + slot * 64 + part * 16, mv_frag + m * row_words + part * 4);
+    if (m < T) cp_async16(dst + slot * kRowBytes + part * 16, mv_frag + m * row_words + part * 4);
   }
-  int* od = reinterpret_cast<int*>(s_frag + 2 * kChunkBytes) + (c & 1) * kChunk;
+  int* od = reinterpret_cast<int*>(s_frag + 2 * Band<BW>::kChunkBytes) + (c & 1) * kChunk;
 #pragma unroll
   for (int k = lane; k < kChunk; k += 32) {
     const int m = kChunk * c + k;
@@ -525,9 +557,11 @@ __device__ __forceinline__ void stage_moves(uint8_t* s_frag, const uint32_t* mv_
 // Stage chunk k of a fragment's codes and weights, columns 64k .. 64k + 63
 // (those < Q), into buffer k & 1: column c's at slot c & 127 of each.  The
 // warp's 32 lanes copy.
+template <int BW>
 __device__ __forceinline__ void stage_cols(uint8_t* s_frag, const int32_t* f_row,
                                            const int32_t* w_row, int k, int Q, int lane) {
-  int* dst = reinterpret_cast<int*>(s_frag + 2 * kChunkBytes) + 2 * kChunk + (k & 1) * kChunk;
+  int* dst = reinterpret_cast<int*>(s_frag + 2 * Band<BW>::kChunkBytes) + 2 * kChunk +
+             (k & 1) * kChunk;
 #pragma unroll
   for (int c = lane; c < kChunk; c += 32) {
     const int col = kChunk * k + c;
@@ -538,6 +572,7 @@ __device__ __forceinline__ void stage_cols(uint8_t* s_frag, const int32_t* f_row
   }
 }
 
+template <int BW>
 __global__ void __launch_bounds__(32 * kWalkWarps)
 traceback_banded_kernel(const uint32_t* __restrict__ moves, const int32_t* __restrict__ offs,
                         const int32_t* __restrict__ ends, const int32_t* __restrict__ row0,
@@ -545,6 +580,10 @@ traceback_banded_kernel(const uint32_t* __restrict__ moves, const int32_t* __res
                         const int32_t* __restrict__ wts, int32_t* __restrict__ col_sym,
                         int32_t* __restrict__ col_w, int32_t* __restrict__ ins_b,
                         int32_t* __restrict__ ins_w, long long B, int T, int Q) {
+  constexpr int kWords = Band<BW>::kWords;
+  constexpr int kRowBytes = Band<BW>::kRowBytes;
+  constexpr int kChunkBytes = Band<BW>::kChunkBytes;
+  constexpr int kWalkBytes = Band<BW>::kWalkBytes;
   extern __shared__ __align__(16) uint8_t smem_walk[];
   // [warp][fragment of the block]
   __shared__ int s_best[kWalkWarps][kWalkFrags], s_best_r[kWalkWarps][kWalkFrags];
@@ -641,8 +680,8 @@ traceback_banded_kernel(const uint32_t* __restrict__ moves, const int32_t* __res
       const int fg = warp * kFragsPerWarp + gg;
       const long long bg = b0 + fg;
       uint8_t* sf = smem_walk + static_cast<size_t>(fg) * kWalkBytes;
-      if (sm >= 0) stage_moves(sf, moves + bg * kWords, offs + bg, row_words, B, sm, T, lane);
-      if (sc >= 0) stage_cols(sf, frags + bg * Q, wts + bg * Q, sc, Q, lane);
+      if (sm >= 0) stage_moves<BW>(sf, moves + bg * kWords, offs + bg, row_words, B, sm, T, lane);
+      if (sc >= 0) stage_cols<BW>(sf, frags + bg * Q, wts + bg * Q, sc, Q, lane);
     }
   };
   stage(valid ? mv_low : -1, valid ? col_low : -1);
@@ -653,7 +692,7 @@ traceback_banded_kernel(const uint32_t* __restrict__ moves, const int32_t* __res
   cp_async_wait_all();
   __syncwarp();
   // shared-space addresses (any row m or column c, the slots of those not
-  // staged included): row m's move words at mv_sh + (m & 127) * 64, its
+  // staged included): row m's move words at mv_sh + (m & 127) * kRowBytes, its
   // band start at off_sh + (m & 127) * 4, column c's code at col_sh + (c &
   // 127) * 4 and its weight 512 bytes on
   const unsigned mv_sh = static_cast<unsigned>(__cvta_generic_to_shared(s_frag));
@@ -661,7 +700,7 @@ traceback_banded_kernel(const uint32_t* __restrict__ moves, const int32_t* __res
   const unsigned col_sh = off_sh + 2 * kChunk * 4;
   constexpr int kSlots = 2 * kChunk - 1;
   auto off_at = [&](int m) { return static_cast<int>(lds_u32(off_sh + (m & kSlots) * 4)); };
-  unsigned row = mv_sh + (ti0 & kSlots) * 64;  // the walker's move row
+  unsigned row = mv_sh + (ti0 & kSlots) * kRowBytes;  // the walker's move row
   int ro = off_at(ti0);                        // and its band start
 
   bool done = !valid;
@@ -720,7 +759,7 @@ traceback_banded_kernel(const uint32_t* __restrict__ moves, const int32_t* __res
       j -= go && mv != 1;
       const bool row_up = up_row && tn >= 1;  // at t == 0 the band stays row 1's
       ro = row_up ? ro_in : ro;
-      row = row_up ? mv_sh + (tin & kSlots) * 64 : row;
+      row = row_up ? mv_sh + (tin & kSlots) * kRowBytes : row;
       t = up_row ? tn : t;
       if (up_row && (tn & (kGroup - 1)) == 0) store_block(tn / kGroup);  // the walker left it
     }
@@ -752,7 +791,9 @@ traceback_banded_kernel(const uint32_t* __restrict__ moves, const int32_t* __res
   }
 }
 
-bool supported(int T, int Q) { return T >= 1 && Q >= BW - 1 && Q <= kMaxQ; }
+bool supported(int T, int Q, int BW) {
+  return T >= 1 && Q >= 1 && Q <= kMaxQ && (BW == 128 || BW == 256);
+}
 
 template <typename Kernel>
 int launch_setup(Kernel kernel, long long B, int per_block, long long smem, unsigned* blocks) {
@@ -769,26 +810,16 @@ int launch_setup(Kernel kernel, long long B, int per_block, long long smem, unsi
   return 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches K9 on `stream` over B fragments at BW = 256 (needs 255 <= Q <=
-// 8192, T >= 1): cw [B, T], frags [B, Q], t_lens, q_lens, r0, r1 [B] int32;
-// moves [T, B, 16], offs and ends [T, B], row0 [B] int32 out.  Returns the
-// CUDA error code of the launch (0 on success).
-int raven_nw_moves_banded_launch(const void* cw, const void* t_lens, const void* frags,
-                                 const void* q_lens, const void* r0, const void* r1,
-                                 void* moves, void* offs, void* ends, void* row0,
-                                 long long B, int T, int Q, void* stream) {
-  if (B == 0) return 0;
-  if (!supported(T, Q)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = static_cast<long long>(kFwdFrags) * forward_words(Q) * 4;
+template <int BW>
+int launch_forward(const void* cw, const void* t_lens, const void* frags, const void* q_lens,
+                   const void* r0, const void* r1, void* moves, void* offs, void* ends,
+                   void* row0, long long B, int T, int Q, cudaStream_t stream) {
+  constexpr int kFwdFrags = Band<BW>::kFwdFrags;
+  const long long smem = static_cast<long long>(kFwdFrags) * forward_words(Q, BW) * 4;
   unsigned blocks = 0;
-  const int err = launch_setup(nw_moves_banded_kernel, B, kFwdFrags, smem, &blocks);
+  const int err = launch_setup(nw_moves_banded_kernel<BW>, B, kFwdFrags, smem, &blocks);
   if (err != 0) return err;
-  nw_moves_banded_kernel<<<blocks, 32 * kFwdWarps, static_cast<size_t>(smem),
-                           static_cast<cudaStream_t>(stream)>>>(
+  nw_moves_banded_kernel<BW><<<blocks, 32 * kFwdWarps, static_cast<size_t>(smem), stream>>>(
       static_cast<const int32_t*>(cw), static_cast<const int32_t*>(t_lens),
       static_cast<const int32_t*>(frags), static_cast<const int32_t*>(q_lens),
       static_cast<const int32_t*>(r0), static_cast<const int32_t*>(r1),
@@ -797,22 +828,16 @@ int raven_nw_moves_banded_launch(const void* cw, const void* t_lens, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches K10 on `stream` over B fragments at BW = 256: K9's moves, offs,
-// ends and row0, with q_lens, frags and wts [B, Q] int32; col_sym, col_w
-// [B, T] and ins_b, ins_w [B, T + 1] int32 out.  Returns the CUDA error
-// code of the launch (0 on success).
-int raven_traceback_banded_launch(const void* moves, const void* offs, const void* ends,
-                                  const void* row0, const void* q_lens, const void* frags,
-                                  const void* wts, void* col_sym, void* col_w, void* ins_b,
-                                  void* ins_w, long long B, int T, int Q, void* stream) {
-  if (B == 0) return 0;
-  if (!supported(T, Q)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = static_cast<long long>(kWalkFrags) * kWalkBytes;
+template <int BW>
+int launch_walk(const void* moves, const void* offs, const void* ends, const void* row0,
+                const void* q_lens, const void* frags, const void* wts, void* col_sym,
+                void* col_w, void* ins_b, void* ins_w, long long B, int T, int Q,
+                cudaStream_t stream) {
+  const long long smem = static_cast<long long>(kWalkFrags) * Band<BW>::kWalkBytes;
   unsigned blocks = 0;
-  const int err = launch_setup(traceback_banded_kernel, B, kWalkFrags, smem, &blocks);
+  const int err = launch_setup(traceback_banded_kernel<BW>, B, kWalkFrags, smem, &blocks);
   if (err != 0) return err;
-  traceback_banded_kernel<<<blocks, 32 * kWalkWarps, static_cast<size_t>(smem),
-                            static_cast<cudaStream_t>(stream)>>>(
+  traceback_banded_kernel<BW><<<blocks, 32 * kWalkWarps, static_cast<size_t>(smem), stream>>>(
       static_cast<const uint32_t*>(moves), static_cast<const int32_t*>(offs),
       static_cast<const int32_t*>(ends), static_cast<const int32_t*>(row0),
       static_cast<const int32_t*>(q_lens), static_cast<const int32_t*>(frags),
@@ -820,6 +845,50 @@ int raven_traceback_banded_launch(const void* moves, const void* offs, const voi
       static_cast<int32_t*>(col_w), static_cast<int32_t*>(ins_b), static_cast<int32_t*>(ins_w),
       B, T, Q);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K9 on `stream` over B fragments at a band of BW = 128 or 256
+// lanes (needs 1 <= Q <= 8192, T >= 1): cw [B, T], frags [B, Q], t_lens,
+// q_lens, r0, r1 [B] int32; moves [T, B, BW / 16], offs and ends [T, B],
+// row0 [B] int32 out.  Returns the CUDA error code of the launch (0 on
+// success).
+int raven_nw_moves_banded_launch(const void* cw, const void* t_lens, const void* frags,
+                                 const void* q_lens, const void* r0, const void* r1,
+                                 void* moves, void* offs, void* ends, void* row0,
+                                 long long B, int T, int Q, int BW, void* stream) {
+  if (B == 0) return 0;
+  if (!supported(T, Q, BW)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (BW == 128) {
+    return launch_forward<128>(cw, t_lens, frags, q_lens, r0, r1, moves, offs, ends, row0, B,
+                               T, Q, st);
+  }
+  return launch_forward<256>(cw, t_lens, frags, q_lens, r0, r1, moves, offs, ends, row0, B, T,
+                             Q, st);
+}
+
+// Launches K10 on `stream` over B fragments at a band of BW = 128 or 256
+// lanes: K9's moves, offs, ends and row0, with q_lens, frags and wts [B, Q]
+// int32; col_sym, col_w [B, T] and ins_b, ins_w [B, T + 1] int32 out.
+// Returns the CUDA error code of the launch (0 on success).
+int raven_traceback_banded_launch(const void* moves, const void* offs, const void* ends,
+                                  const void* row0, const void* q_lens, const void* frags,
+                                  const void* wts, void* col_sym, void* col_w, void* ins_b,
+                                  void* ins_w, long long B, int T, int Q, int BW,
+                                  void* stream) {
+  if (B == 0) return 0;
+  if (!supported(T, Q, BW)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (BW == 128) {
+    return launch_walk<128>(moves, offs, ends, row0, q_lens, frags, wts, col_sym, col_w, ins_b,
+                            ins_w, B, T, Q, st);
+  }
+  return launch_walk<256>(moves, offs, ends, row0, q_lens, frags, wts, col_sym, col_w, ins_b,
+                          ins_w, B, T, Q, st);
 }
 
 const char* raven_cuda_error_string(int code) {

@@ -27,9 +27,9 @@ import torch
 
 NEG = -(1 << 20)
 MATCH, MISMATCH, GAP = 3, -5, -4
-# the band width the kernels take: K3 runs two fragments a warp at 16 band
-# lanes a lane, K4 8 lanes a fragment
-KERNEL_BW = 256
+# the widest band the kernels take: K3 holds 16 band lanes a lane, at most
+# a warp's 32 lanes a fragment (raven_tpu takes any multiple of 16)
+KERNEL_MAX_BW = 512
 LAUNCHES = {"band_forward": 0, "mask_walk_votes": 0}
 
 
@@ -188,9 +188,15 @@ def _check(named, device):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_bw(T: int, BW: int):
-    if BW != KERNEL_BW or T < 1:
-        raise ValueError(f"the band kernels take BW = {KERNEL_BW} and T >= 1, got BW={BW}, T={T}")
+def check_kernel_shape(T: int, BW: int):
+    """Raise ValueError on a shape the card kernels do not take: BW not a
+    multiple of 16 (raven_tpu packs a row's moves in BW / 16 words), BW
+    above KERNEL_MAX_BW, or T < 1."""
+    if BW % 16 or not 16 <= BW <= KERNEL_MAX_BW or T < 1:
+        raise ValueError(
+            f"the band kernels take BW a multiple of 16 from 16 to {KERNEL_MAX_BW} and "
+            f"T >= 1, got BW={BW}, T={T}"
+        )
 
 
 _FNS = None
@@ -205,10 +211,14 @@ def _fns():
         lib = csrc.load("band")
         fwd = lib.raven_band_forward_launch
         fwd.restype = ctypes.c_int
-        fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fwd.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
         walk = lib.raven_band_walk_launch
         walk.restype = ctypes.c_int
-        walk.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        walk.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
         _FNS = lib, fwd, walk
     return _FNS
 
@@ -218,7 +228,7 @@ def _forward_kernel(cw, t_lens, fw_sh, q_lens, r0, T: int, BW: int):
 
     B = cw.shape[0]
     i32 = torch.int32
-    _check_bw(T, BW)
+    check_kernel_shape(T, BW)
     _check((
         ("cw", cw, i32, (B, T)), ("t_lens", t_lens, i32, (B,)),
         ("fw_sh", fw_sh, torch.uint8, (B, T + BW + 1)), ("q_lens", q_lens, i32, (B,)),
@@ -236,7 +246,7 @@ def _forward_kernel(cw, t_lens, fw_sh, q_lens, r0, T: int, BW: int):
     with torch.cuda.device(dev):
         err = fwd(
             cw.data_ptr(), t_lens.data_ptr(), fw_sh.data_ptr(), q_lens.data_ptr(),
-            r0.data_ptr(), moves.data_ptr(), ends.data_ptr(), row0.data_ptr(), B, T,
+            r0.data_ptr(), moves.data_ptr(), ends.data_ptr(), row0.data_ptr(), B, T, BW,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     csrc.check(lib, err, "banded forward kernel launch")
@@ -249,7 +259,7 @@ def _walk_kernel(moves, end_scores, row0_score, fw_sh, q_lens, r0, T: int, BW: i
 
     B = q_lens.shape[0]
     i32 = torch.int32
-    _check_bw(T, BW)
+    check_kernel_shape(T, BW)
     _check((
         ("moves", moves, i32, (T, B, BW // 16)), ("end_scores", end_scores, i32, (T, B)),
         ("row0_score", row0_score, i32, (B,)),
@@ -265,7 +275,7 @@ def _walk_kernel(moves, end_scores, row0_score, fw_sh, q_lens, r0, T: int, BW: i
     with torch.cuda.device(dev):
         err = walk(
             moves.data_ptr(), end_scores.data_ptr(), row0_score.data_ptr(), fw_sh.data_ptr(),
-            q_lens.data_ptr(), r0.data_ptr(), votes.data_ptr(), ins.data_ptr(), B, T,
+            q_lens.data_ptr(), r0.data_ptr(), votes.data_ptr(), ins.data_ptr(), B, T, BW,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     csrc.check(lib, err, "band walk kernel launch")

@@ -28,7 +28,9 @@ from raven_tpu_torch.ops.consensus_cuda import votes_from_primitives
 
 NEG = -(1 << 20)
 MATCH, MISMATCH, GAP = 3, -5, -4
-KERNEL_BW = 256  # the band width the kernels take: K9 holds 16 band lanes a lane
+# the band widths the kernels take, raven_tpu's min(256, pow2(q_pad)): K9
+# holds 16 band lanes a lane, 16 lanes a fragment at 256 and 8 at 128
+KERNEL_BWS = (128, 256)
 KERNEL_MAX_Q = 8192  # the longest padded fragment the kernels' shared memory holds
 LAUNCHES = {"nw_moves_banded": 0, "traceback_banded": 0}
 
@@ -235,11 +237,12 @@ def _check(named, device):
 
 def check_kernel_shape(T: int, Q: int, BW: int):
     """Raise ValueError on a shape the card kernels do not take: BW other
-    than 256, Q + 1 < BW (the band would run past the fragment), Q above
-    KERNEL_MAX_Q, or T < 1."""
-    if BW != KERNEL_BW or Q + 1 < BW or Q > KERNEL_MAX_Q or T < 1:
+    than 128 or 256, Q outside 1 .. KERNEL_MAX_Q (K9 holds a fragment's
+    codes in shared memory), or T < 1.  A band wider than the fragment (Q +
+    1 < BW) is taken, as raven_tpu takes it."""
+    if BW not in KERNEL_BWS or not 1 <= Q <= KERNEL_MAX_Q or T < 1:
         raise ValueError(
-            f"the anchored banded kernels take BW = {KERNEL_BW}, BW - 1 <= Q <= "
+            f"the anchored banded kernels take BW in {KERNEL_BWS}, 1 <= Q <= "
             f"{KERNEL_MAX_Q} and T >= 1, got T={T}, Q={Q}, BW={BW}"
         )
 
@@ -257,12 +260,12 @@ def _fns():
         fwd = lib.raven_nw_moves_banded_launch
         fwd.restype = ctypes.c_int
         fwd.argtypes = [ctypes.c_void_p] * 10 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         walk = lib.raven_traceback_banded_launch
         walk.restype = ctypes.c_int
         walk.argtypes = [ctypes.c_void_p] * 11 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         _FNS = lib, fwd, walk
     return _FNS
@@ -293,7 +296,7 @@ def _forward_kernel(cw, t_lens, frags, q_lens, r0, r1, T: int, Q: int, BW: int):
         err = fwd(
             cw.data_ptr(), t_lens.data_ptr(), frags.data_ptr(), q_lens.data_ptr(),
             r0.data_ptr(), r1.data_ptr(), moves.data_ptr(), offs.data_ptr(),
-            ends.data_ptr(), row0.data_ptr(), B, T, Q,
+            ends.data_ptr(), row0.data_ptr(), B, T, Q, BW,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     csrc.check(lib, err, "anchored banded forward kernel launch")
@@ -326,7 +329,7 @@ def _walk_kernel(moves, offs, end_scores, row0_score, q_lens, frags, wts,
         err = walk(
             moves.data_ptr(), offs.data_ptr(), end_scores.data_ptr(), row0_score.data_ptr(),
             q_lens.data_ptr(), frags.data_ptr(), wts.data_ptr(), col_sym.data_ptr(),
-            col_w.data_ptr(), ins_b.data_ptr(), ins_w.data_ptr(), B, T, Q,
+            col_w.data_ptr(), ins_b.data_ptr(), ins_w.data_ptr(), B, T, Q, BW,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     csrc.check(lib, err, "anchored banded walk kernel launch")

@@ -8,8 +8,9 @@ Paths:
   * native C++ Myers bit-parallel (raven_tpu_torch/native/myers.cc) — default;
   * numpy fallback using the prefix-min trick (each row's horizontal
     dependency collapsed into np.minimum.accumulate);
-  * a banded device kernel for batched similarity (the polisher's, which
-    this package does not carry yet).
+  * the polisher's batched dynamic programs on the device live in
+    raven_tpu_torch/ops/dp_device.py (the window-boundary crossings and
+    the infix edit distance, infix_align_device).
 """
 
 from __future__ import annotations

@@ -7,17 +7,18 @@ struct-of-arrays (hash-sorted), so lookup is binary search
 (np.searchsorted) instead of a pointer hash table and candidate expansion
 is a vectorized gather.  With a mesh (MinimizerIndex.MESH, the global
 mesh once a process group is up, or every card when the engine's device
-is CUDA and more than one card is visible) the index is
-hash-range-sharded over it (parallel/sharded_index.py), at any input
-size, as raven_tpu's is.  Otherwise inputs of DEVICE_MIN_BASES or more
-build the device-resident index (overlap/device_index.py) on the engine's
-device, partitioned by hash range above one DeviceIndex's entries;
-smaller ones take the host path.  Where a device path cannot take an
-input (a capacity limit), the engine says so on stderr, counts it in
-`MinimizerIndex.host_declines` and takes the next path: the single device
-index after the sharded one, the host index after that, whose sketch
-of DEVICE_MIN_BASES or more still runs on the engine's device (K1, as
-raven_tpu's RAVEN_TPU_DEVICE_SKETCH=1 route does).
+is CUDA and more than one card is visible; MESH = False refuses one) the
+index is hash-range-sharded over it (parallel/sharded_index.py), at any
+input size, as raven_tpu's is.  Otherwise inputs of DEVICE_MIN_BASES or
+more build the device-resident index (overlap/device_index.py) on the
+engine's device, partitioned by hash range above one DeviceIndex's
+entries; smaller ones take the host path, and so does every input with
+DEVICE_MAP = False (raven_tpu's RAVEN_TPU_DEVICE_MAP=0).  Where a device
+path cannot take an input (a capacity limit), the engine says so on
+stderr, counts it in `MinimizerIndex.host_declines` and takes the next
+path: the single device index after the sharded one, the host index after
+that, whose sketch of DEVICE_MIN_BASES or more still runs on the engine's
+device (K1, as raven_tpu's RAVEN_TPU_DEVICE_SKETCH=1 route does).
 
 API mirrors the reference engine:
   minimize(readset, ids, minhash)  ~ ram Minimize  (construct.cc:42)
@@ -41,7 +42,7 @@ from raven_tpu_torch.overlap.device_index import (
     PartitionedIndex,
 )
 from raven_tpu_torch.overlap.minimizer import minimize_read, minimize_reads
-from raven_tpu_torch.parallel.mesh import default_mesh
+from raven_tpu_torch.parallel.mesh import chosen_mesh
 from raven_tpu_torch.overlap.types import OVERLAP_DTYPE
 
 
@@ -76,8 +77,18 @@ class MinimizerIndex:
     # once a process group is up (parallel/distributed.py), else every
     # card when the engine's device is CUDA and more than one card is
     # visible (raven_tpu's automatic multi-device path); a Mesh forces it
-    # (raven_tpu's RAVEN_TPU_SHARDED_MAP=1)
+    # (raven_tpu's RAVEN_TPU_SHARDED_MAP=1), False refuses it and keeps the
+    # single-device index (RAVEN_TPU_SHARDED_MAP=0)
     MESH = None
+    # False builds every index on the host: no device, partitioned or
+    # sharded index, whatever the input's size (raven_tpu's
+    # RAVEN_TPU_DEVICE_MAP=0; DEVICE_SKETCH still sketches on the device),
+    # and graph/construct.py batches it at raven_tpu's 2^32 bases
+    DEVICE_MAP = True
+    # False chains a device join's matches on the host
+    # (selfjoin.chain_per_read) instead of on the device: the same
+    # overlaps (raven_tpu's RAVEN_TPU_DEVICE_CHAIN=0)
+    DEVICE_CHAIN = True
     # after a device-index decline, inputs of DEVICE_MIN_BASES or more
     # are sketched on the engine's device (K1) for the host index, as
     # raven_tpu's RAVEN_TPU_DEVICE_SKETCH=1 does (opt-in there only for
@@ -208,10 +219,10 @@ class MinimizerIndex:
         """Build the index device-resident: sharded over a mesh when there
         is one, else partitioned above MAX_ENTRIES entries; returns False
         to fall through to the host build (inputs under DEVICE_MIN_BASES,
-        or a decline)."""
-        if ids.size == 0:
+        or a decline, and every input when DEVICE_MAP is off)."""
+        if ids.size == 0 or not self.DEVICE_MAP:
             return False
-        mesh = self.MESH if self.MESH is not None else default_mesh(self.device)
+        mesh = chosen_mesh(self.MESH, self.device)
         if mesh is not None and 2 * self.k <= 30:
             from raven_tpu_torch.parallel.sharded_index import ShardedIndex
 
@@ -352,8 +363,9 @@ class MinimizerIndex:
         matches = None
         if self._device is not None and self._hashes is None:
             # chaining runs on device too unless the caller needs the
-            # per-overlap anchors (the matches then never leave the device)
-            chain_k = self.k if anchors_out is None else None
+            # per-overlap anchors or DEVICE_CHAIN is off (the matches then
+            # never leave the device)
+            chain_k = self.k if anchors_out is None and self.DEVICE_CHAIN else None
             matches = self._device.distance_join(
                 int(self._occurrence),
                 batch,

@@ -157,6 +157,16 @@ def default_mesh(device: torch.device) -> Mesh | None:
     return None
 
 
+def chosen_mesh(forced, device: torch.device) -> Mesh | None:
+    """The mesh a MESH class attribute asks for: None takes
+    default_mesh(device), False refuses any mesh (raven_tpu's
+    RAVEN_TPU_SHARDED_MAP=0 and RAVEN_TPU_SHARDED_POLISH=0), a Mesh forces
+    itself (their value 1)."""
+    if forced is None:
+        return default_mesh(device)
+    return None if forced is False else forced
+
+
 def split_rows(n_rows: int, n_devices: int) -> list[slice]:
     """Contiguous blocks of `n_rows` rows, one a device (the order
     PartitionSpec(axis) deals them); n_rows must be a multiple of

@@ -3,14 +3,13 @@
 A copy of raven_tpu/polish/polisher.py with five changes: the mapping
 index is the port's engine on the polisher's device; the crossing DP runs
 on that device through ops/dp_device.py unless it is the CPU (and raises
-on failure); the consensus routes by DeviceCfg alone: the full-NW device
-consensus when poa_batches > 0, anchored-banded with banded_alignment,
-else the shift-banded device consensus (ops/consensus_band.py, raven_tpu's
-default engine) whenever the device is asked for; the device consensus
-shards its votes over a mesh (Polisher.MESH, or every card when the
-device is CUDA and more than one card is visible) where raven_tpu reads
-RAVEN_TPU_SHARDED_POLISH; the host fork pool checks whether CUDA is
-initialised.
+on failure); the device consensus's engine and iterations are the class
+attributes CONSENSUS_ENGINE and CONSENSUS_ITERS where raven_tpu reads
+RAVEN_TPU_CONSENSUS_ENGINE and RAVEN_TPU_CONSENSUS_ITERS; the device
+consensus shards its votes over a mesh (Polisher.MESH, or every card when
+the device is CUDA and more than one card is visible; False refuses one)
+where raven_tpu reads RAVEN_TPU_SHARDED_POLISH; the host fork pool checks
+whether CUDA is initialised.
 
 Reference behaviour being reproduced (use site RavenLib/src/polish.cc:43-51
 plus the racon library dependency it drives):
@@ -43,7 +42,7 @@ from raven_tpu_torch.overlap.engine import MinimizerIndex
 from raven_tpu_torch.overlap.types import overlap_length
 from raven_tpu_torch.ops.align_dp import batched_boundary_crossings
 from raven_tpu_torch.ops.poa import poa_consensus
-from raven_tpu_torch.parallel.mesh import default_mesh
+from raven_tpu_torch.parallel.mesh import chosen_mesh
 
 MAP_K = 15  # read->contig mapping k-mer length (racon's ram default)
 WINDOW_LEN = 500  # polish.cc:44 (racon window_length)
@@ -86,8 +85,20 @@ class Polisher:
     # the mesh of the device consensus's votes: None takes every card when
     # the polisher's device is CUDA and more than one card is visible
     # (raven_tpu's automatic multi-device polish); a Mesh forces it
-    # (raven_tpu's RAVEN_TPU_SHARDED_POLISH=1)
+    # (raven_tpu's RAVEN_TPU_SHARDED_POLISH=1), False refuses it and keeps
+    # the one-device votes (RAVEN_TPU_SHARDED_POLISH=0)
     MESH = None
+    # the device consensus's engine (raven_tpu's RAVEN_TPU_CONSENSUS_ENGINE):
+    # None routes by DeviceCfg, the full-NW engine (anchored-banded with
+    # banded_alignment) when poa_batches > 0 or banded_alignment is set,
+    # else the shift-banded one; "shiftband" takes the shift-banded engine
+    # whatever DeviceCfg says; any other string the full-NW engine, banded
+    # only with banded_alignment (raven_tpu's "banded" and "pallas" fall
+    # through to full NW, and so do they here)
+    CONSENSUS_ENGINE = None
+    # the device consensus's refinement iterations (raven_tpu's
+    # RAVEN_TPU_CONSENSUS_ITERS)
+    CONSENSUS_ITERS = 4
 
     def __init__(
         self,
@@ -425,12 +436,14 @@ class Polisher:
         """Dispatch window consensus jobs: the batched device consensus
         when the device is asked for (DeviceCfg.poa_batches > 0 asks for it
         in every round), C++/python POA on the host when it is not.  On the
-        device, DeviceCfg.poa_batches or banded_alignment (the reference's
-        CUDA-POA flags) select raven_tpu's legacy engine: the full-NW
+        device, CONSENSUS_ENGINE picks the engine; by default
+        DeviceCfg.poa_batches or banded_alignment (the reference's CUDA-POA
+        flags) select raven_tpu's legacy engine, and without either the
+        shift-banded consensus runs.  The legacy engine is the full-NW
         window consensus, anchored-banded with banded_alignment, in chunks
-        of poa_batches * 256 fragment rows (2048 without poa_batches);
-        without either, the shift-banded consensus.  Either shards its
-        votes over the mesh (MESH, or default_mesh)."""
+        of poa_batches * 256 fragment rows (2048 without poa_batches).
+        Either runs CONSENSUS_ITERS iterations and shards its votes over
+        the mesh MESH asks for (parallel.mesh.chosen_mesh)."""
         use_dev = self.use_device_consensus
         dc = self.device_cfg
         if dc is not None and dc.poa_batches > 0:
@@ -445,23 +458,28 @@ class Polisher:
                 for _, _, backbone, frag_codes, weights, spans in jobs
             ]
             self.last_engine = "device"
-            mesh = self.MESH if self.MESH is not None else default_mesh(self.device)
-            if dc is not None and (dc.poa_batches > 0 or dc.banded_alignment):
+            mesh = chosen_mesh(self.MESH, self.device)
+            engine = self.CONSENSUS_ENGINE
+            if engine is None:
+                legacy = dc is not None and (dc.poa_batches > 0 or dc.banded_alignment)
+                engine = "full" if legacy else "shiftband"
+            if engine != "shiftband":
                 from raven_tpu_torch.ops.consensus_device import (
                     device_window_consensus,
                 )
 
                 kwargs = {}
-                if dc.poa_batches > 0:
+                if dc is not None and dc.poa_batches > 0:
                     kwargs["chunk"] = 256 * dc.poa_batches
                 return device_window_consensus(
-                    windows, iterations=4, banded=dc.banded_alignment,
+                    windows, iterations=self.CONSENSUS_ITERS,
+                    banded=dc is not None and dc.banded_alignment,
                     mesh=mesh, device=self.device, **kwargs,
                 )
             from raven_tpu_torch.ops.consensus_band import band_window_consensus
 
             return band_window_consensus(
-                windows, iterations=4, mesh=mesh, device=self.device
+                windows, iterations=self.CONSENSUS_ITERS, mesh=mesh, device=self.device
             )
         self.last_engine = "host"
         return self._run_poa_host(jobs)

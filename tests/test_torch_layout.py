@@ -86,3 +86,165 @@ def test_long_edge_decisions_match_jax():
     removed = lambda g: {i for i, e in enumerate(g.edges) if e is None}  # noqa: E731
     assert nt == nj > 0
     assert removed(gt) == removed(gj)
+
+
+def _long_edge_calls(assemble_mod, monkeypatch):
+    """Record the edges each long-edge round of `assemble_mod` marks: the
+    remove_edges call that follows each layout."""
+    calls = []
+    layout_fn, remove = assemble_mod.create_force_directed_layout, assemble_mod.remove_edges
+    after_layout = [False]
+
+    def lay(graph, *args, **kwargs):
+        after_layout[0] = True
+        return layout_fn(graph, *args, **kwargs)
+
+    def rem(graph, marked, *args, **kwargs):
+        if after_layout[0]:
+            calls.append(sorted(marked))
+            after_layout[0] = False
+        return remove(graph, marked, *args, **kwargs)
+
+    monkeypatch.setattr(assemble_mod, "create_force_directed_layout", lay)
+    monkeypatch.setattr(assemble_mod, "remove_edges", rem)
+    return calls
+
+
+@pytest.fixture(scope="module")
+def repeat_checkpoint(tmp_path_factory):
+    """raven_tpu's construct of a 1 Mb genome at 30x with a repeat family
+    (8 copies of an 11 kb element, 2% apart; chip_smoke.py's
+    cli-1M-30x-repeats reads), stored as a checkpoint (as
+    tests/test_torch_pipeline.py::test_raven_tpu_checkpoint_assembles_the_same
+    stores one).  Its long-edge removal lays out components of 640 nodes,
+    above the n-body's 512."""
+    from raven_tpu.config import OverlapPhaseCfg
+    from raven_tpu.graph import Graph, construct_graph
+    from raven_tpu.graph.binary import store_graph
+    from raven_tpu.io import ReadSet
+    from raven_tpu_torch.utils.synth import simulate_reads
+
+    rng = np.random.default_rng(77)
+    size, (length, copies, divergence) = 1_000_000, (11_000, 8, 0.02)
+    genome = rng.integers(0, 4, size).astype(np.uint8)
+    element = rng.integers(0, 4, length).astype(np.uint8)
+    for s in np.linspace(size * 0.05, size * 0.95, copies).astype(int):
+        r = element.copy()
+        m = rng.random(length) < divergence
+        r[m] = (r[m] + rng.integers(1, 4, m.sum())) % 4
+        if rng.random() < 0.5:
+            r = r[::-1] ^ 3
+        genome[s : s + length] = r
+    reads = simulate_reads(rng, genome, 30, 9000, 0.025, 0.0125, 0.0125)
+    mp = pytest.MonkeyPatch()
+    mp.setenv("RAVEN_TPU_DEVICE_MAP", "0")
+    try:
+        graph = Graph()
+        construct_graph(graph, ReadSet.from_sequences(reads), OverlapPhaseCfg())
+    finally:
+        mp.undo()
+    ckpt = str(tmp_path_factory.mktemp("repeats") / "graph.ckpt")
+    store_graph(graph, ckpt)
+    return ckpt
+
+
+def _record_n_body_inputs(layout_mod, calls, monkeypatch):
+    """Record the components of 512 nodes or more that `layout_mod` lays
+    out, as (long-edge round, points, edges_a, edges_b); the round is the
+    number of rounds `calls` holds when the layout runs."""
+    inputs = []
+    component = layout_mod._layout_component
+
+    def lay(points, edges_a, edges_b, *args, **kwargs):
+        if len(points) >= 512:
+            inputs.append((len(calls), points.copy(), edges_a.copy(), edges_b.copy()))
+        return component(points, edges_a, edges_b, *args, **kwargs)
+
+    monkeypatch.setattr(layout_mod, "_layout_component", lay)
+    return inputs
+
+
+def _assemble_both(ckpt, monkeypatch, port_runs=1):
+    """Both packages assemble the checkpoint (the port on the CPU): each
+    one's unitigs as (name, sequence) and the edges of each long-edge
+    round, the components of 512 nodes or more each one lays out (see
+    _record_n_body_inputs), and the port's unitigs of every run."""
+    from raven_tpu.graph import get_unitigs
+    from raven_tpu.graph.binary import load_graph
+    from raven_tpu_torch.graph import get_unitigs as t_get_unitigs
+    from raven_tpu_torch.graph.binary import load_graph as t_load_graph
+
+    want_calls = _long_edge_calls(jassemble, monkeypatch)
+    got_calls = _long_edge_calls(tassemble, monkeypatch)
+    want_inputs = _record_n_body_inputs(jlayout, want_calls, monkeypatch)
+    got_inputs = _record_n_body_inputs(tlayout, got_calls, monkeypatch)
+    want_graph = load_graph(ckpt)
+    jlayout.reset_seed()
+    jassemble.assemble(want_graph)
+    want = [(n.name, n.sequence_str()) for n in get_unitigs(want_graph, False)]
+    got = []
+    for _ in range(port_runs):
+        got_graph = t_load_graph(ckpt)
+        tlayout.reset_seed()
+        tassemble.assemble(got_graph, device="cpu")
+        got.append([(n.name, n.sequence_str()) for n in t_get_unitigs(got_graph, False)])
+    return want, got, want_calls, got_calls, want_inputs, got_inputs
+
+
+def test_repeat_genome_checkpoint_assembles_the_same(repeat_checkpoint, monkeypatch,
+                                                     record_property):
+    """The repeat genome's checkpoint through both packages' assemble with
+    every component on the layout's float64 host loop (the n-body's
+    threshold raised in both): the same edges marked in every long-edge
+    round and the same unitigs.  Through the n-body the two packages' calls
+    part (see the next test)."""
+    monkeypatch.setattr(jlayout, "_DEVICE_MIN_NODES", 1 << 30)
+    monkeypatch.setattr(tlayout, "_DEVICE_MIN_NODES", 1 << 30)
+    runs = tlayout.DEVICE_RUNS
+    want, (got,), want_calls, got_calls, want_inputs, _ = _assemble_both(
+        repeat_checkpoint, monkeypatch
+    )
+    assert want_inputs and tlayout.DEVICE_RUNS == runs
+    differ = [(i, sorted(set(g) ^ set(w)))
+              for i, (g, w) in enumerate(zip(got_calls, want_calls)) if g != w]
+    assert len(got_calls) == len(want_calls) and not differ, (
+        f"long-edge calls differ: (round, edges marked by one package only) {differ[:4]}"
+    )
+    assert len(want) >= 1
+    assert got == want
+    record_property("unitig_lengths", [len(s) for _, s in got])
+
+
+def test_repeat_genome_n_body_runs_reproducibly(repeat_checkpoint, monkeypatch,
+                                                record_property):
+    """The same checkpoint with the components of 512 nodes or more on
+    both packages' float32 n-body: both lay out the same components from
+    the same start points in the first round, the port's n-body holds
+    raven_tpu's positions within POS_ATOL after 1 and 5 iterations on each
+    of them, and the port gives the same unitigs on a second run.  The two
+    packages' long-edge calls part from the first round on: over the 100
+    iterations the n-body is chaotic (the module docstring), and
+    raven_tpu's own unitigs differ between its n-body and its float64 host
+    loop on this genome.  The rounds and edges that differ, and both
+    unitig lengths, are recorded as properties of this test."""
+    j_n_body, t_n_body = jlayout._layout_component, tlayout._layout_component
+    runs = tlayout.DEVICE_RUNS
+    want, got, want_calls, got_calls, want_inputs, got_inputs = _assemble_both(
+        repeat_checkpoint, monkeypatch, port_runs=2
+    )
+    assert tlayout.DEVICE_RUNS - runs >= 2
+    assert got[0] == got[1]
+    assert len(got_calls) == 2 * len(want_calls)
+    first = [[x[1:] for x in inputs if x[0] == 0] for inputs in (want_inputs, got_inputs)]
+    assert len(first[0]) == len(first[1]) > 0
+    for (pj, aj, bj), (pt, at, bt) in zip(*first):
+        assert np.array_equal(pj, pt) and np.array_equal(aj, at) and np.array_equal(bj, bt)
+        for iters in (1, 5):
+            np.testing.assert_allclose(t_n_body(pt.copy(), at, bt, iters, "cpu"),
+                                       j_n_body(pj.copy(), aj, bj, iters), rtol=0, atol=POS_ATOL)
+    record_property("first_round_n_body_sizes", [len(p) for p, _, _ in first[0]])
+    differ = [(i, sorted(set(g) ^ set(w)))
+              for i, (g, w) in enumerate(zip(got_calls, want_calls)) if g != w]
+    record_property("long_edge_calls_differ", differ)
+    record_property("unitig_lengths", {"raven_tpu": [len(s) for _, s in want],
+                                       "port": [len(s) for _, s in got[0]]})

@@ -118,7 +118,13 @@ def test_index_batch_budget_matches_reference(monkeypatch):
     the index on the CPU the port batches at raven_tpu's 2^32 bases, as
     raven_tpu does on a CPU backend; on a card it clamps to raven_tpu's
     budget on a device backend (its partitioned index's ceiling).  The
-    port's function reads only the device's type, so no card is needed."""
+    host index (MinimizerIndex.DEVICE_MAP off) keeps 2^32 on a card, as
+    raven_tpu does under RAVEN_TPU_DEVICE_MAP=0, and a budget the caller
+    sets (construct.INDEX_BATCH_BYTES) wins over the clamp, as
+    RAVEN_TPU_INDEX_BATCH_BASES does.  The port's function reads only the
+    device's type, so no card is needed."""
+    import importlib
+
     import torch
 
     from raven_tpu.graph import construct as jconstruct
@@ -134,3 +140,25 @@ def test_index_batch_budget_matches_reference(monkeypatch):
     want_card = jconstruct._index_batch_bytes()
     assert want_card == 2_174_327_193
     assert tconstruct._index_batch_bytes(torch.device("cuda")) == want_card
+
+    # the host index on a card: raven_tpu's RAVEN_TPU_DEVICE_MAP=0
+    monkeypatch.setenv("RAVEN_TPU_DEVICE_MAP", "0")
+    want_host = jconstruct._index_batch_bytes()
+    assert want_host == 1 << 32
+    assert tconstruct._index_batch_bytes(torch.device("cuda"), device_map=False) == want_host
+    assert tconstruct._index_batch_bytes(torch.device("cuda"), device_map=True) == want_card
+    monkeypatch.delenv("RAVEN_TPU_DEVICE_MAP")
+
+    # a budget above the clamp, set explicitly: raven_tpu's
+    # RAVEN_TPU_INDEX_BATCH_BASES, read when its module loads
+    monkeypatch.setenv("RAVEN_TPU_INDEX_BATCH_BASES", str(3 << 30))
+    importlib.reload(jconstruct)
+    try:
+        want_set = jconstruct._index_batch_bytes()
+        assert want_set == 3 << 30 > want_card
+        monkeypatch.setattr(tconstruct, "INDEX_BATCH_BYTES", 3 << 30)
+        for dev, device_map in (("cuda", True), ("cuda", False), ("cpu", True)):
+            assert tconstruct._index_batch_bytes(torch.device(dev), device_map) == want_set
+    finally:
+        monkeypatch.delenv("RAVEN_TPU_INDEX_BATCH_BASES", raising=False)
+        importlib.reload(jconstruct)
