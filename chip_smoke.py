@@ -152,9 +152,33 @@ failure:
      never), the polish gate, its wall beside phase 9's; (c) the
      index-batch budget for an index on the card by default, for the host
      index and under a budget set above the clamp, raven_tpu's values;
+     (d) past the old limits: each first route's ceiling confirmed (its
+     launcher launches at the last shape launch_plan gives it and refuses
+     one past: K2's pair route at T 9,412 for Q 768, K3's strips at T 14,399
+     for BW 256 and 28,799 for 512, K4's staging at T 10,143 and 5,791, K9's
+     shared-memory codes at Q 55,887); bit for bit against the plain
+     versions: K2 at [64, 640, 1040], [64, 640, 2048], [16, 16384, 1024]
+     and [16, 12000, 4096] (the int32 route) and its pair route on pairs
+     whose consensus rows end apart (the case of its borrow fix), K3/K4
+     at BW 528, 768, 1024, 2048 and 4096 on 16 windows with insertion runs
+     (T = 160), at BW 256 with T = 16,384 and at BW 1024 with T = 8,192 (the
+     wide and direct routes), K9/K10 at q_pad 8208, 16384 and 65536 on bank
+     rows, cut fragments, steep spans and all-mismatch rows in one batch
+     each (65536 on K9's global route) and at T = 16,384, q_pad 768; the
+     three engines through their entry points on 16 windows, the card's
+     consensus the CPU's byte for byte: device_window_consensus at q_pad
+     2048, banded at q_pad 16384 and 65536, band_window_consensus at bw 768;
+     and one call of each engine on a bank of 512 windows of 2,000 bases x
+     30 fragments at t_pad 2048 (full NW and banded at q_pad 2560,
+     shift-banded at bw 768): the walls, the routes launched, the consensus
+     closer to the truth than the backbones, and each kernel on the first
+     chunk or group bit-equal and timed beside its bound; no route past an
+     old limit may launch before this phase (the CLI paths take the first
+     routes);
  14. a `kernels` JSON line (K3, K4, K9 and K10 with the widths they ran
-     at), the card's name and power limit, and the last line {"ok": true,
-     "device": {...}}.
+     at; the routes past the old limits as kernels of their own, their
+     launches phase 13(d)'s engine calls'), the card's name and power limit,
+     and the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -416,11 +440,13 @@ def band_walk_bound(votes, B: int, T: int, BW: int) -> tuple[float, str, dict]:
                                      "bytes_ms": t_bytes, "ops_ms": t_ops}
 
 
-def banded_forward_bound(tlens, B: int, T: int, Q: int, BW: int) -> tuple[float, str, dict]:
+def banded_forward_bound(tlens, qlens, B: int, T: int, Q: int,
+                         BW: int) -> tuple[float, str, dict]:
     """Least time for K9's work on these inputs: the larger of the bytes
-    each read or written once (cw int32 [B, T], frags int32 [B, Q], t_lens,
-    q_lens, r0, r1 int32 [B] in; moves int32 [T, B, BW/16], offs and end
-    scores int32 [T, B], row-0 scores int32 [B] out) over HBM bandwidth, and
+    each read or written once (cw int32 [B, T]; of frags int32 [B, Q] the
+    min(q_len, Q) columns an output depends on; t_lens, q_lens, r0, r1 int32
+    [B] in; moves int32 [T, B, BW/16], offs and end scores int32 [T, B],
+    row-0 scores int32 [B] out) over HBM bandwidth, and
     K9_INSTR_PER_CELL integer instructions for each band cell of a row
     within the fragment's consensus (every such cell's move is an output;
     the rows past it are constants) over the card's instruction issue
@@ -428,7 +454,8 @@ def banded_forward_bound(tlens, B: int, T: int, Q: int, BW: int) -> tuple[float,
     import torch
 
     cells = int(tlens.to(torch.int64).clamp(0, T).sum()) * BW
-    nbytes = 4 * B * T + 4 * B * Q + 16 * B + 4 * T * B * (BW // 16) + 8 * T * B + 4 * B
+    frag_cols = int(qlens.to(torch.int64).clamp(0, Q).sum())
+    nbytes = 4 * B * T + 4 * frag_cols + 16 * B + 4 * T * B * (BW // 16) + 8 * T * B + 4 * B
     ops = cells * K9_INSTR_PER_CELL
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT_INSTR_PER_S * 1e3
@@ -1272,16 +1299,17 @@ def phase_layout(device):
     return {"layout_runs": runs, "nbody_100_s": t_nbody}
 
 
-def consensus_chunk(n_rows: int = 2048, t_pad: int = 640, q_pad: int = 768):
+def consensus_chunk(n_rows: int = 2048, t_pad: int = 640, q_pad: int = 768, windows=None):
     """The first `n_rows` fragment rows of bench_polish.py's window bank
-    (make_windows(512, 500, 30), seed 21) as device_window_consensus lays
-    out its first iteration: each row's window backbone (the working
-    consensus) padded to t_pad with -1, the fragment to q_pad with -1, its
-    weights with 0.  Returns numpy (cw, tlens, frags, qlens, wts) and the
-    bank's row count."""
+    (make_windows(512, 500, 30), seed 21; or of `windows`) as
+    device_window_consensus lays out its first iteration: each row's window
+    backbone (the working consensus) padded to t_pad with -1, the fragment
+    to q_pad with -1, its weights with 0.  Returns numpy (cw, tlens, frags,
+    qlens, wts) and the bank's row count."""
     from raven_tpu_torch.utils.synth import make_windows
 
-    windows, _ = make_windows(512, 500, 30, np.random.default_rng(21))
+    if windows is None:
+        windows, _ = make_windows(512, 500, 30, np.random.default_rng(21))
     total = sum(len(f) for _, f, _ in windows)
     cw = np.full((n_rows, t_pad), -1, np.int32)
     tl = np.zeros(n_rows, np.int32)
@@ -1801,7 +1829,7 @@ def phase_banded(device, k2_ms):
         steep = int(((rise >= 3) & (rise < BW)).any(dim=0).sum())
         ms9 = cuda_ms(lambda: bc.nw_moves_banded(cw, tl, fr, ql, r0, r1, T, Q, BW))
         ms10 = cuda_ms(lambda: bc.traceback_banded(*fwd, ql, fr, wt, T, Q, BW))
-        b9, by9, p9 = banded_forward_bound(tl, B, T, Q, BW)
+        b9, by9, p9 = banded_forward_bound(tl, ql, B, T, Q, BW)
         b10, by10, p10 = banded_walk_bound(steps, ww[0], ww[2], B, T)
         log(
             f"K9/K10 {name} [B, T, Q, BW] = [{B}, {T}, {Q}, {BW}]: bit-equal (max_abs_err "
@@ -1927,18 +1955,19 @@ def check_band(device, arrays, BW: int, name: str, timed: bool):
     return out
 
 
-def banded_width_cases(q_pad: int):
+def banded_width_cases(q_pad: int, n_rows: int = 2048):
     """[name, (cw, tlens, frags, qlens, r0, r1, wts)] numpy cases for K9 and
     K10 at T = 640 and q_pad (its band min(256, pow2(q_pad))): the bank's
-    first chunk of 2,048 rows cut to q_pad (every fragment longer than it,
-    so the band's columns past Q read its last base), the same rows cut at
-    random lengths up to q_pad, steep spans of 2-250 rows beside full-span
-    ones, and all-mismatch rows."""
+    first chunk of `n_rows` rows cut to q_pad (with q_pad below the
+    fragments' ~500 bases, every fragment longer than it, so the band's
+    columns past Q read its last base), the same rows cut at random lengths
+    up to q_pad (past the fragment, pad codes), steep spans of 2-250 rows
+    beside full-span ones, and up to 256 all-mismatch rows."""
     from raven_tpu_torch.utils.synth import make_windows
 
     T = BANDED_T
     windows, _ = make_windows(512, 500, 30, np.random.default_rng(21))
-    chunk = banded_layout(windows, 2048, q_pad=q_pad)
+    chunk = banded_layout(windows, n_rows, q_pad=q_pad)
     cw, tl, fr, ql, r0, r1, wt = (a.copy() for a in chunk)
     cases = [(f"bank chunk, q_pad {q_pad}", chunk)]
     rng = np.random.default_rng(q_pad)
@@ -1950,7 +1979,7 @@ def banded_width_cases(q_pad: int):
     r0s = np.where(steep, (rng.random(r0.size) * tl * 0.7).astype(np.int32), r0)
     r1s = np.where(steep, r0s + rng.integers(2, 251, r0.size), r1).astype(np.int32)
     cases.append((f"steep spans, q_pad {q_pad}", (cw, tl, fr_c, cut, r0s, r1s, wt_c)))
-    n = 256
+    n = min(256, n_rows)
     cwm = np.where(np.arange(T)[None, :] < tl[:n, None], 0, -1).astype(np.int32)
     cases.append((f"all mismatches, q_pad {q_pad}",
                   (cwm, tl[:n], np.ones((n, q_pad), np.int32), np.full(n, q_pad, np.int32),
@@ -1969,11 +1998,11 @@ def check_banded(device, arrays, name: str, timed: bool):
     from raven_tpu_torch.ops import banded_cuda as bc
     from raven_tpu_torch.ops.consensus_device import _pow2_of
 
-    T = BANDED_T
     cw, tl, fr, ql, r0, r1, wt = (
         torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays
     )
     B, Q = fr.shape
+    T = cw.shape[1]
     BW = min(256, _pow2_of(Q))
     got = bc.nw_moves_banded(cw, tl, fr, ql, r0, r1, T, Q, BW)
     want = bc.nw_moves_banded_plain(cw, tl, fr, ql, r0, r1, T, Q, BW)
@@ -2003,7 +2032,7 @@ def check_banded(device, arrays, name: str, timed: bool):
                      "nw_moves_banded_kernel")
     dev10 = device_ms(lambda: bc.traceback_banded(*want, ql, fr, wt, T, Q, BW),
                       "traceback_banded_kernel")
-    b9, by9, _ = banded_forward_bound(tl, B, T, Q, BW)
+    b9, by9, _ = banded_forward_bound(tl, ql, B, T, Q, BW)
     b10, by10, _ = banded_walk_bound(steps, ww[0], ww[2], B, T)
     log(f"K9/K10 {name} [B, T, Q, BW] = [{B}, {T}, {Q}, {BW}]: bit-equal; walks: {ends}; "
         f"K9 {ms9:.4f} ms (device {fmt_ms(dev9)}), bound {b9:.4f} ms by {by9}; K10 "
@@ -2111,6 +2140,478 @@ def phase_budget() -> dict:
             f"index-batch budgets on the card {out}")
     log(f"index-batch budget on the card: default {out['default']}, host index "
         f"{out['host_index']}, explicit {out['explicit']} (raven_tpu's)")
+    return out
+
+
+# ------------------------------------------------- 13(d): past the old limits
+# the shapes each kernel's first route refused before this slice: K2 past
+# Q 1024, its 16-bit range (4Q + 3T + 8 > 49152) and a warp's shared memory
+# ([B, T, Q]); K3/K4 past 512 lanes and past their shared memory (T);
+# K9/K10 past q_pad 8192 and past 8 fragments' packed codes (BW 256)
+PAST_K2 = ((64, 640, 1040), (64, 640, 2048), (16, 16384, 1024), (16, 12000, 4096))
+PAST_BAND_WIDTHS = (528, 768, 1024, 2048, 4096)
+PAST_BAND_LONG = ((256, 16384), (1024, 8192))  # (BW, T)
+PAST_BANDED_Q_PADS = (8208, 16384, 65536)
+# K9's global route timed on [B, T, Q, seed] rows of 59,500 .. 61,500 bases
+# before their 5% deletions (q_len past 55,887) on consensus rows of 62,000
+# .. 64,000
+K9_LONG, K9_LONG_BASES = (256, 64000, 65536, 7), (59500, 61500)
+# the full batch: a bank of 512 windows of 2,000 bases x 30 fragments
+FULL_WINDOWS, FULL_WINDOW, FULL_COVERAGE = 512, 2000, 30
+FULL_T, FULL_Q, FULL_BW = 2048, 2560, 768
+# each route's CUDA kernel, for its device time in a profiler trace
+ROUTE_KERNELS = {
+    "votes_primitives": "votes_primitives_kernel",
+    "votes_primitives_i32": "votes_primitives_i32_kernel",
+    "band_forward": "band_forward_kernel", "band_forward_wide": "band_forward_wide_kernel",
+    "mask_walk_votes": "band_walk_kernel", "mask_walk_votes_direct": "band_walk_direct_kernel",
+    "nw_moves_banded": "nw_moves_banded_kernel", "nw_moves_banded_global": "nw_moves_banded_kernel",
+    "traceback_banded": "traceback_banded_kernel",
+}
+NEW_ROUTES = ("votes_primitives_i32", "band_forward_wide", "mask_walk_votes_direct",
+              "nw_moves_banded_global")
+
+
+def route_counts() -> dict:
+    """Launches per route since the process started (no phase zeroes them)."""
+    from raven_tpu_torch.ops import band_cuda, banded_cuda, consensus_cuda
+
+    return {**consensus_cuda.ROUTE_LAUNCHES, **band_cuda.ROUTE_LAUNCHES,
+            **banded_cuda.ROUTE_LAUNCHES}
+
+
+def k2_long_rows(B: int, T: int, Q: int, seed: int):
+    """[B, T] / [B, Q] int32 K2 inputs whose fragments cycle through their
+    consensus: consensus rows of T/2 .. T bases, fragments of Q/2 .. Q
+    bases with 5% substitutions (long runs of left or up moves), weights
+    1-255, every 7th row empty (q_len 0); neighbouring rows (a pair on the
+    pair route) end their consensus at different rows."""
+    rng = np.random.default_rng(seed)
+    tl = rng.integers(T // 2, T + 1, B).astype(np.int32)
+    cw = np.where(np.arange(T)[None] < tl[:, None], rng.integers(0, 4, (B, T)), -1)
+    fr = np.full((B, Q), -1, np.int32)
+    ql = np.zeros(B, np.int32)
+    for b in range(B):
+        if b % 7 == 0:
+            continue
+        n = int(rng.integers(Q // 2, Q + 1))
+        src = np.resize(cw[b, : tl[b]], n)
+        fr[b, :n] = np.where(rng.random(n) < 0.05, (src + 1) % 4, src)
+        ql[b] = n
+    wt = np.where(fr >= 0, rng.integers(1, 256, fr.shape), 0)
+    return cw.astype(np.int32), tl, fr, ql, wt.astype(np.int32)
+
+
+def banded_long_rows(B: int, T: int, Q: int, seed: int, n_min: int = 0, n_max: int = 0):
+    """[B, T] / [B, Q] K9/K10 inputs on long consensus rows: each fragment
+    (n_min .. n_max bases, Q/2 .. Q by default, then 5% substitutions and
+    deletions) drawn from a random place r0 of its consensus row (T - 2,000
+    .. T bases) and anchored there, every 4th anchored on the whole row (a
+    shallow band), weights 1-255."""
+    rng = np.random.default_rng(seed)
+    tl = rng.integers(T - 2000, T + 1, B).astype(np.int32)
+    cw = np.where(np.arange(T)[None] < tl[:, None], rng.integers(0, 4, (B, T)), -1)
+    fr = np.full((B, Q), -1, np.int32)
+    ql = np.zeros(B, np.int32)
+    r0 = np.zeros(B, np.int32)
+    r1 = tl.copy()
+    for b in range(B):
+        n = int(rng.integers(n_min or Q // 2, (n_max or Q) + 1))
+        if b % 4:
+            r0[b] = rng.integers(0, tl[b] - n)
+            r1[b] = r0[b] + n
+        src = cw[b, r0[b] : r0[b] + n]
+        s = np.where(rng.random(src.size) < 0.05, (src + 1) % 4, src)[rng.random(src.size) >= 0.05]
+        fr[b, : s.size] = s
+        ql[b] = s.size
+    wt = np.where(fr >= 0, rng.integers(1, 256, fr.shape), 0)
+    return cw.astype(np.int32), tl, fr, ql, r0, r1, wt.astype(np.int32)
+
+
+def past_ceilings(device) -> dict:
+    """Each first route's ceiling on the card: its launcher, called
+    directly, launches at the last shape its wrapper's launch_plan gives
+    it, the card refuses one step past (the block's shared memory: the
+    launchers keep no limit of their own), and the next launch after a
+    refusal goes through.  Returns {kernel: (last, past)}."""
+    import torch
+
+    from raven_tpu_torch.ops import band_cuda as bc
+    from raven_tpu_torch.ops import banded_cuda as bd
+    from raven_tpu_torch.ops import consensus_cuda as cc
+
+    i32 = torch.int32
+    st = torch.cuda.current_stream().cuda_stream
+
+    def z(*shape, dtype=i32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def k2(T, Q=768, B=2):
+        _, words, fn, _ = cc._fns()
+        a = [torch.from_numpy(x).to(device) for x in k2_long_rows(B, T, Q, T)]
+        mv = z(max(words(B, T, Q), 1))
+        outs = (z(B, T), z(B, T), z(B, T + 1), z(B, T + 1))
+        return fn(*(x.data_ptr() for x in (*a, mv, *outs)), B, T, Q, st, 2)
+
+    # each first route's launcher at its own fragments a block, also one
+    # step past the shape where launch_plan leaves it
+    def k3(T, BW, B=8):
+        fn = bc._fns()[1]["band_forward"]
+        args = (z(B, T), z(B), z(B, T + BW + 1, dtype=torch.uint8), z(B), z(B),
+                z(T, B, BW // 16), z(T, B), z(B))
+        return fn(*(x.data_ptr() for x in args), B, T, BW, st, 8 if BW <= 256 else 4)
+
+    def k4(T, BW, B=16):
+        fn = bc._fns()[1]["mask_walk_votes"]
+        args = (z(T, B, BW // 16), z(T, B), z(B), z(B, T + BW + 1, dtype=torch.uint8), z(B),
+                z(B), z(B, T), z(B, T + 1))
+        return fn(*(x.data_ptr() for x in args), B, T, BW, st, 16)
+
+    def k9(Q, T=16, B=8):
+        fn = bd._fns()[1]
+        args = (z(B, T), z(B), z(B, Q), z(B), z(B), z(B) + 1, z(T, B, 16), z(T, B), z(T, B), z(B))
+        return fn(*(x.data_ptr() for x in args), B, T, Q, 256, st, bd.FWD_FRAGS[256])
+
+    probes = {
+        "K2 pair route, T at Q 768": (k2, 9412, lambda T: cc.launch_plan(T, 768)[0]),
+        "K3 strips, T at BW 256": (lambda T: k3(T, 256), 14399,
+                                   lambda T: bc.launch_plan(T, 256)[0][0]),
+        "K3 strips, T at BW 512": (lambda T: k3(T, 512), 28799,
+                                   lambda T: bc.launch_plan(T, 512)[0][0]),
+        "K4 staged, T at BW 256": (lambda T: k4(T, 256), 10143,
+                                   lambda T: bc.launch_plan(T, 256)[1][0]),
+        "K4 staged, T at BW 512": (lambda T: k4(T, 512), 5791,
+                                   lambda T: bc.launch_plan(T, 512)[1][0]),
+        "K9 smem, Q at BW 256": (k9, 55887, lambda Q: bd.launch_plan(16, Q, 256)[0]),
+    }
+    out = {}
+    for name, (launch, last, plan) in probes.items():
+        require(plan(last) != plan(last + 1), f"{name}: launch_plan's boundary is not at {last}")
+        err_last = launch(last)
+        torch.cuda.synchronize()
+        err_past = launch(last + 1)
+        err_next = launch(last)
+        torch.cuda.synchronize()
+        require(err_last == 0 and err_next == 0 and err_past != 0,
+                f"{name}: the card's ceiling is not launch_plan's {last} (errors at {last}, "
+                f"{last + 1}, {last} again: {err_last}, {err_past}, {err_next})")
+        out[name] = {"last": last, "past_error": err_past}
+        log(f"ceiling {name}: {last} launches, {last + 1} refused (CUDA error {err_past}), "
+            f"as launch_plan has it")
+    return out
+
+
+def check_votes(device, arrays, name: str):
+    """K2 against its plain version on `arrays` (cw, tlens, frags, qlens,
+    wts), bit for bit; returns the case's fields."""
+    import torch
+
+    from raven_tpu_torch.ops import consensus_cuda as cc
+
+    cw, tl, fr, ql, wt = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
+    (B, T), Q = cw.shape, fr.shape[1]
+    route = cc.launch_plan(T, Q)[0]
+    got = cc.votes_primitives(cw, tl, fr, ql, wt)
+    want = cc.votes_primitives_plain(cw, tl, fr, ql, wt)
+    torch.cuda.synchronize()
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, want))
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            f"K2 ({route}) differs from votes_primitives_plain at {name} [{B}, {T}, {Q}] (max "
+            f"abs err {err}; " + first_diffs(got, want, ("col_sym", "col_w", "ins_b", "ins_w"))
+            + ")")
+    log(f"K2 {name} [B, T, Q] = [{B}, {T}, {Q}], route {route}: bit-equal, "
+        f"{int((got[0] < 5).sum())} column votes")
+    return {"case": name, "shape": [B, T, Q], "route": route, "max_abs_err": err}
+
+
+def timed_plain(plain):
+    """(plain()'s result, its one call's milliseconds between two CUDA
+    events): the plain version that a check compares with, timed as it
+    runs."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = plain()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def time_route(fn, route: str, runs: int = 5) -> dict:
+    """A kernel's one-call time and its device time on the card."""
+    return {"ms": cuda_ms(fn, runs=runs, warmup=1),
+            "device_ms": device_ms(fn, ROUTE_KERNELS[route], runs=runs, warmup=1)}
+
+
+def time_k9(device, arrays) -> dict:
+    """K9 on `arrays` (cw, tlens, frags, qlens, r0, r1, wts) at BW 256: its
+    route, times and bound."""
+    import torch
+
+    from raven_tpu_torch.ops import banded_cuda as bd
+
+    cw, tl, fr, ql, r0, r1, _ = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                                 for a in arrays)
+    (B, Q), T = fr.shape, cw.shape[1]
+    route = bd.launch_plan(T, Q, 256)[0]
+    bound, by, _ = banded_forward_bound(tl, ql, B, T, Q, 256)
+    want, plain_ms = timed_plain(lambda: bd.nw_moves_banded_plain(cw, tl, fr, ql, r0, r1, T, Q,
+                                                                  256))
+    got = bd.nw_moves_banded(cw, tl, fr, ql, r0, r1, T, Q, 256)
+    torch.cuda.synchronize()
+    require(all(torch.equal(x, y) for x, y in zip(got, want)),
+            f"K9 ({route}) differs from its plain version at {[B, T, Q, 256]}")
+    # band starts that step back: raven_tpu's (row - r0) * q_len wrapped
+    wrapping = int((want[1][1:] < want[1][:-1]).any(dim=0).sum())
+    return {"route": route, "shape": [B, T, Q, 256], "bound_ms": bound, "bound_by": by,
+            "plain_ms": plain_ms, "wrapping": wrapping,
+            **time_route(lambda: bd.nw_moves_banded(cw, tl, fr, ql, r0, r1, T, Q, 256), route)}
+
+
+def past_kernel_cases(device) -> dict:
+    """Every kernel bit-equal to its plain version on the card at the
+    shapes past its old limits (small batches, each case's seconds kept);
+    K9's global route timed on K9_LONG's rows.  Returns the cases'
+    fields."""
+    from raven_tpu_torch.ops import band_cuda as bc
+    from raven_tpu_torch.utils.synth import make_windows
+
+    out = {"K2": [], "band": [], "banded": []}
+
+    def case(kind, check, *args):
+        t = time.perf_counter()
+        out[kind].append({**check(device, *args), "s": time.perf_counter() - t})
+        log(f"  ({out[kind][-1]['case']}, {out[kind][-1]['shape']}: {out[kind][-1]['s']:.1f} s)")
+        return out[kind][-1]
+
+    t0 = time.perf_counter()
+    for B, T, Q in PAST_K2:
+        case("K2", check_votes, k2_long_rows(B, T, Q, T + Q), "fragments cycling their consensus")
+    # the case that found the pair route's borrow across its halves
+    for B, T, Q in ((64, 640, 768), (16, 200, 300)):
+        case("K2", check_votes, k2_long_rows(B, T, Q, T + Q),
+             "pairs whose consensus rows end apart")
+    t_band = time.perf_counter()
+    short, _ = make_windows(16, 120, 30, np.random.default_rng(21))
+    runs = insertion_runs(short)
+    for BW in PAST_BAND_WIDTHS:
+        c = case("band", check_band, band_layout(runs, BW, q_pad=240, T=160), BW,
+                 f"16 windows with insertion runs, BW {BW}", False)
+        c["routes"] = bc.launch_plan(160, BW)
+    for BW, T in PAST_BAND_LONG:
+        grp, _ = make_windows(4, T - 400, 8, np.random.default_rng(T))
+        c = case("band", check_band, band_layout(grp, BW, q_pad=T + BW, T=T), BW,
+                 f"4 windows of {T - 400} bases, BW {BW}", False)
+        c["routes"] = bc.launch_plan(T, BW)
+    log(f"K3/K4 past 512 lanes (BW {PAST_BAND_WIDTHS}) and past their T ceilings "
+        f"({PAST_BAND_LONG}): bit-equal")
+    t1 = time.perf_counter()
+    for q_pad in PAST_BANDED_Q_PADS:
+        # 16 rows of each kind in one batch: the plain walk takes one move a
+        # step for the batch's longest walk, so one batch costs it once
+        cases = banded_width_cases(q_pad, n_rows=16)
+        mixed = tuple(np.concatenate(parts) for parts in zip(*(a for _, a in cases)))
+        case("banded", check_banded, mixed, f"bank rows, cut fragments, steep spans, all "
+             f"mismatches, q_pad {q_pad}", False)
+    case("banded", check_banded, banded_long_rows(32, 16384, 768, 5),
+         "long consensus rows, T 16384", False)
+    t2 = time.perf_counter()
+    # K9's global route timed where it is needed: fragments whose bases run
+    # past the shared-memory route's 55,887 columns, on consensus rows as
+    # long as they are
+    out["K9_global"] = time_k9(device, banded_long_rows(*K9_LONG, n_min=K9_LONG_BASES[0],
+                                                        n_max=K9_LONG_BASES[1]))
+    t3 = time.perf_counter()
+    k9g = out["K9_global"]
+    log(f"K9 ({k9g['route']}) on long rows {k9g['shape']}: bit-equal, {k9g['wrapping']} "
+        f"fragments whose int32 band start wraps (as raven_tpu's); {k9g['ms']:.4f} ms (device "
+        f"{fmt_ms(k9g['device_ms'])}), bound {k9g['bound_ms']:.4f} ms by {k9g['bound_by']}, "
+        f"plain version {k9g['plain_ms']:.4f} ms")
+    log(f"phase 13(d) kernel cases: K2 {t_band - t0:.1f} s, K3/K4 {t1 - t_band:.1f} s, "
+        f"K9/K10 {t2 - t1:.1f} s, K9 global timed {t3 - t2:.1f} s")
+    return out
+
+
+def engine_calls(windows, t_pad: int, q_pad: int, bw: int, chunk: int):
+    """The three engines' calls on `windows`, each (name, call(device))."""
+    from raven_tpu_torch.ops.consensus_band import band_window_consensus
+    from raven_tpu_torch.ops.consensus_device import device_window_consensus
+
+    kw = dict(iterations=2, t_pad=t_pad)
+    return (
+        (f"full NW, q_pad {q_pad}",
+         lambda d: device_window_consensus(windows, q_pad=q_pad, chunk=chunk, device=d, **kw)),
+        (f"anchored banded, q_pad {q_pad}",
+         lambda d: device_window_consensus(windows, q_pad=q_pad, chunk=chunk, banded=True,
+                                           device=d, **kw)),
+        (f"shift-banded, bw {bw}",
+         lambda d: band_window_consensus(windows, q_pad=q_pad, bw=bw, device=d, **kw)),
+    )
+
+
+def past_engines(device) -> dict:
+    """The three engines through their entry points on 16 windows at the
+    shapes past the old limits, on the card and on the CPU (the plain
+    versions): the same consensus bytes.  Returns each call's route
+    launches."""
+    from raven_tpu_torch.ops.consensus_device import device_window_consensus
+    from raven_tpu_torch.utils.synth import make_windows
+
+    long16, _ = make_windows(16, 1100, 10, np.random.default_rng(31))
+    win16, _ = make_windows(16, 500, 10, np.random.default_rng(33))
+    _, banded, shift = engine_calls(win16, 640, 16384, 768, 256)
+    calls = [
+        ("full NW, q_pad 2048", lambda d: device_window_consensus(
+            long16, iterations=2, t_pad=1280, q_pad=2048, chunk=256, device=d)),
+        banded,
+        ("anchored banded, q_pad 65536", lambda d: device_window_consensus(
+            win16, iterations=2, t_pad=640, q_pad=65536, chunk=256, banded=True, device=d)),
+        shift,
+    ]
+    out = {}
+    for name, call in calls:
+        before = route_counts()
+        (got, wall) = timed(lambda: call(device))
+        after = route_counts()
+        t0 = time.perf_counter()
+        want = call("cpu")
+        cpu_s = time.perf_counter() - t0
+        require(len(got) == len(want) and all(
+            np.array_equal(a, b) for a, b in zip(got, want)),
+            f"the {name} consensus on the card differs from the CPU's")
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        out[name] = {"wall_s": wall, "launches": launched}
+        log(f"{name} on {len(got)} windows: the card's consensus is the CPU's, byte for byte; "
+            f"{wall:.3f} s on the card ({cpu_s:.1f} s on the CPU); routes launched {launched}")
+    return out
+
+
+def full_batch(device, smi: str) -> dict:
+    """One call of each engine on a bank of FULL_WINDOWS windows of
+    FULL_WINDOW bases x FULL_COVERAGE fragments at t_pad FULL_T (q_pad
+    FULL_Q, the shift-banded band FULL_BW): its wall, its route launches,
+    and its consensus against the windows' truth (closer than the
+    backbones on the first 32 windows); then each route's kernel on the
+    engine's first chunk or group, bit-equal to its plain version, timed
+    beside its bound."""
+    import torch
+
+    from raven_tpu_torch.ops import band_cuda as bc
+    from raven_tpu_torch.ops import banded_cuda as bd
+    from raven_tpu_torch.ops import consensus_cuda as cc
+    from raven_tpu_torch.ops.edit_distance import edit_distance
+    from raven_tpu_torch.utils.synth import make_windows
+
+    truths: list = []
+    bank, _ = make_windows(FULL_WINDOWS, FULL_WINDOW, FULL_COVERAGE,
+                           np.random.default_rng(41), truths)
+    out = {"engines": {}}
+    ed_bb = sum(edit_distance(w[0], t) for w, t in zip(bank[:32], truths))
+    for name, call in engine_calls(bank, FULL_T, FULL_Q, FULL_BW, 2048):
+        before = route_counts()
+        cons, wall = timed(lambda: call(device))
+        after = route_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        ed = sum(edit_distance(c, t) for c, t in zip(cons[:32], truths))
+        require(len(cons) == FULL_WINDOWS and ed < ed_bb / 2,
+                f"{name} on the bank: {len(cons)} windows, edit distance {ed} to the truth "
+                f"on 32 windows against the backbones' {ed_bb}")
+        out["engines"][name] = {"wall_s": wall, "launches": launched, "ed_32": ed,
+                                "backbone_ed_32": ed_bb}
+        log(f"{name} on {FULL_WINDOWS} windows of {FULL_WINDOW} bases x {FULL_COVERAGE}, t_pad "
+            f"{FULL_T}: {wall:.3f} s, routes launched {launched}; edit distance to the truth "
+            f"on 32 windows {ed} (backbones {ed_bb}) [{smi}]")
+
+    kernels = {}
+    T, Q, BW = FULL_T, FULL_Q, FULL_BW
+
+    def dev(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"{what} differs from its plain version at the bank's full batch")
+
+    (cw, tl, fr, ql, wt), _ = consensus_chunk(2048, T, Q, windows=bank)
+    a2 = dev((cw, tl, fr, ql, wt))
+    route = cc.launch_plan(T, Q)[0]
+    want, plain_ms = timed_plain(lambda: cc.votes_primitives_plain(*a2))
+    same(cc.votes_primitives(*a2), want, f"K2 ({route})")
+    b, by, _ = votes_bound(a2[1], a2[3], T, Q)
+    kernels["K2"] = {"route": route, "shape": [2048, T, Q], "bound_ms": b, "bound_by": by,
+                     "plain_ms": plain_ms,
+                     **time_route(lambda: cc.votes_primitives(*a2), route)}
+    del want
+
+    a3 = dev(band_layout(bank[:128], BW, q_pad=Q, T=T))
+    B3 = a3[0].shape[0]
+    (r3, _), (r4, _) = bc.launch_plan(T, BW)
+    fwd, plain3 = timed_plain(lambda: bc.band_forward_plain(*a3, T, BW))
+    same(bc.band_forward(*a3, T, BW), fwd, f"K3 ({r3})")
+    walk, plain4 = timed_plain(lambda: bc.mask_walk_votes_plain(*fwd, *a3[2:], T, BW))
+    same(bc.mask_walk_votes(*fwd, *a3[2:], T, BW), walk, f"K4 ({r4})")
+    b3, by3, _ = band_forward_bound(B3, T, BW)
+    b4, by4, _ = band_walk_bound(walk[0], B3, T, BW)
+    kernels["K3"] = {"route": r3, "shape": [B3, T, BW], "bound_ms": b3, "bound_by": by3,
+                     "plain_ms": plain3, **time_route(lambda: bc.band_forward(*a3, T, BW), r3)}
+    kernels["K4"] = {"route": r4, "shape": [B3, T, BW], "bound_ms": b4, "bound_by": by4,
+                     "plain_ms": plain4,
+                     **time_route(lambda: bc.mask_walk_votes(*fwd, *a3[2:], T, BW), r4)}
+    del fwd
+
+    banded = banded_layout(bank, 2048, t_pad=T, q_pad=Q)
+    cw9, tl9, fr9, ql9, r09, r19, wt9 = dev(banded)
+    B9, BW9 = fr9.shape[0], 256
+    kernels["K9"] = time_k9(device, banded)
+    fwd9 = bd.nw_moves_banded(cw9, tl9, fr9, ql9, r09, r19, T, Q, BW9)  # held to its plain
+    (walk9, _, steps), plain10 = timed_plain(lambda: bd.traceback_banded_plain(
+        *fwd9, ql9, fr9, wt9, T, Q, BW9, return_walks=True))
+    same(bd.traceback_banded(*fwd9, ql9, fr9, wt9, T, Q, BW9), walk9, "K10")
+    b10, by10, _ = banded_walk_bound(steps, walk9[0], walk9[2], B9, T)
+    kernels["K10"] = {"route": "traceback_banded", "shape": [B9, T, Q, BW9], "bound_ms": b10,
+                      "bound_by": by10, "plain_ms": plain10,
+                      **time_route(lambda: bd.traceback_banded(*fwd9, ql9, fr9, wt9, T, Q, BW9),
+                                   "traceback_banded")}
+    for k, v in kernels.items():
+        log(f"{k} ({v['route']}) at the bank's full batch {v['shape']}: bit-equal; "
+            f"{v['ms']:.4f} ms (device {fmt_ms(v['device_ms'])}), bound {v['bound_ms']:.4f} ms "
+            f"by {v['bound_by']}, plain version {v['plain_ms']:.4f} ms [{smi}]")
+    out["kernels"] = kernels
+    return out
+
+
+def phase_past_limits(device, smi: str) -> dict:
+    """Phase 13(d): every consensus kernel past its old limits.  The first
+    routes' ceilings confirmed on the card; the kernels bit-equal to their
+    plain versions at shapes past each limit; the three engines through
+    their entry points on 16 windows, the card's consensus the CPU's; one
+    engine call each at a full batch, timed.  No route past an old limit
+    may have launched before this phase (the CLI paths take the first
+    routes).  Returns the phase's fields for the kernels line."""
+    before = route_counts()
+    require(all(before[r] == 0 for r in NEW_ROUTES),
+            f"a route past the old limits launched before phase 13(d): {before}")
+    # the phase's plain versions are host-bound: what else holds the host
+    log(f"phase 13(d) starts: host load average {os.getloadavg()[0]:.2f} over a minute, "
+        f"{os.cpu_count()} cores")
+    t0 = time.perf_counter()
+    out = {"ceilings": past_ceilings(device), "cases": past_kernel_cases(device)}
+    t1 = time.perf_counter()
+    out["engines"] = past_engines(device)
+    out["full_batch"] = full_batch(device, smi)
+    # the slice's own path: the engines' calls, the 16 windows' and the full
+    # batch's (not the launches that time or check a kernel)
+    calls = [*out["engines"].values(), *out["full_batch"]["engines"].values()]
+    out["launches"] = {r: sum(c["launches"].get(r, 0) for c in calls) for r in before}
+    out["launches_before"] = {r: before[r] for r in NEW_ROUTES}
+    require(all(out["launches"][r] > 0 for r in NEW_ROUTES),
+            f"phase 13(d)'s engine calls launched a new route no time: {out['launches']}")
+    log(f"phase 13(d): ceilings and kernel cases {t1 - t0:.1f} s, engines (16 windows and "
+        f"the full batch) {time.perf_counter() - t1:.1f} s; route launches on the engines' "
+        f"calls {out['launches']}")
     return out
 
 
@@ -2581,6 +3082,7 @@ def phase_metrics(device, smi: str, reads115: str, reads_cli: str) -> dict:
 def run() -> dict:
     import torch
 
+    t_run = time.perf_counter()
     require(torch.cuda.is_available(), "no CUDA device: this run needs one card")
     try:
         sys.path.insert(0, REPO)
@@ -2651,6 +3153,7 @@ def run() -> dict:
     wid = phase_widths(device)
     sw = phase_switches(device, work, main_path["contigs"][0], pol)
     phase_budget()
+    past = phase_past_limits(device, smi)
 
     def widths(cases, kernel):
         # a timed case's measurements, the other cases' shapes: all bit-equal
@@ -2788,6 +3291,41 @@ def run() -> dict:
         "shape": k10["shape"],
         "widths": widths(wid["banded"], "K10"),
     }]
+    # the routes past the old limits, timed at phase 13(d)'s full batch (K9's
+    # global route at q_pad 65,536); their launches are 13(d)'s engine calls'
+    fb = past["full_batch"]["kernels"]
+    require((fb["K2"]["route"], fb["K3"]["route"], fb["K4"]["route"], fb["K9"]["route"]) == (
+        "votes_primitives_i32", "band_forward_wide", "mask_walk_votes_direct", "nw_moves_banded"),
+        f"the full batch took other routes: {[(k, v['route']) for k, v in fb.items()]}")
+    cases = past["cases"]
+    k9g = cases["K9_global"]
+    require(k9g["route"] == "nw_moves_banded_global", f"K9 at q_pad 65,536 took {k9g['route']}")
+    errs = {"votes_primitives_i32": cases["K2"], "band_forward_wide": cases["band"],
+            "mask_walk_votes_direct": cases["band"], "nw_moves_banded_global": cases["banded"]}
+    for name, route, source, replaces, t in (
+        ("window_consensus_votes_i32", "votes_primitives_i32", "consensus.cu",
+         "raven_tpu/ops/pallas_consensus.py:237", fb["K2"]),
+        ("band_forward_wide", "band_forward_wide", "band.cu",
+         "raven_tpu/ops/consensus_band.py:97", fb["K3"]),
+        ("band_walk_votes_direct", "mask_walk_votes_direct", "band.cu",
+         "raven_tpu/ops/consensus_band.py:172", fb["K4"]),
+        ("nw_moves_banded_global", "nw_moves_banded_global", "banded.cu",
+         "raven_tpu/ops/consensus_device.py:163", k9g),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"raven_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": past["launches"][route],
+            "launches_before_phase_13d": past["launches_before"][route],
+            "equal": True, "max_abs_err": max(c["max_abs_err"] for c in errs[route]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "device_ms": t["device_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "shape": t["shape"],
+        })
+    named = {k["name"]: k for k in kernels}  # the first routes past the old limits
+    named["window_consensus_votes"]["past_limit_cases"] = cases["K2"]
+    named["nw_moves_banded"]["full_batch"] = fb["K9"]
+    named["traceback_banded"]["full_batch"] = fb["K10"]
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     return {

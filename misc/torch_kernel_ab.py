@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Time two builds of the band kernels (K3, K4 in band.cu; K9, K10 in
-banded.cu) side by side.
+"""Time two builds of the consensus kernels (K2 in consensus.cu; K3, K4 in
+band.cu; K9, K10 in banded.cu) side by side.
 
     python3 misc/torch_kernel_ab.py OTHER_CSRC_DIR
 
-builds OTHER_CSRC_DIR's band.cu and banded.cu (another version of
-raven_tpu_torch/csrc, such as an earlier commit's, unpacked with `git
-archive`) beside the checkout's own, and on one CUDA card, at the main
-path's shapes of chip_smoke.py's phases 7 and 8 (K3/K4 on the bank group,
-[B, T, BW] = [4096, 640, 256]; K9/K10 on the bank chunk, [B, T, Q, BW] =
-[2048, 640, 768, 256]), and K3 at phase 13(a)'s other widths
+builds OTHER_CSRC_DIR's consensus.cu, band.cu and banded.cu (another
+version of raven_tpu_torch/csrc, such as an earlier commit's, unpacked
+with `git archive`) beside the checkout's own, and on one CUDA card, at
+the main path's shapes of chip_smoke.py's phases 6, 7 and 8 (K2 on the
+bank chunk, [B, T, Q] = [2048, 640, 768]; K3/K4 on the bank group, [B, T,
+BW] = [4096, 640, 256]; K9/K10 on the bank chunk, [B, T, Q, BW] = [2048,
+640, 768, 256]), and K3 at phase 13(a)'s other widths
 (chip_smoke.BAND_WIDTHS, on the bank's first 128 windows):
 
   * holds both builds bit for bit to the plain versions on every output;
@@ -19,9 +20,10 @@ path's shapes of chip_smoke.py's phases 7 and 8 (K3/K4 on the bank group,
     included) and chip_smoke.device_ms (the kernel's own time in a
     torch.profiler trace).
 
-A build whose launchers take no band width (the sources before the band
-kernels took several) is called without it.  Prints the card's name and
-power limit, one line a measurement and a last line of JSON.
+These shapes take each wrapper's first route; a build that lacks a
+launcher of a later route (an older source) raises only if that launcher
+is called.  Prints the card's name and power limit, one line a
+measurement and a last line of JSON.
 """
 
 from __future__ import annotations
@@ -55,27 +57,42 @@ def _build(name: str, src: str) -> ctypes.CDLL:
     return lib
 
 
-def _typed(mod, lib, src: str):
+class _Missing:
+    """A launcher the other build does not have: raises when called."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __call__(self, *args):
+        raise RuntimeError(f"the other build has no {self.name}")
+
+
+class _Lib:
+    """`lib` with _Missing in place of the launchers it lacks."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+
+    def __getattr__(self, name: str):
+        try:
+            return getattr(self._lib, name)
+        except AttributeError:
+            return _Missing(name)
+
+
+def _typed(mod, lib):
     """`mod._fns()` for `lib`, the launchers typed as the wrapper types
-    them; for a source whose launchers take no band width, each called
-    without the width (the argument before the stream)."""
+    them."""
     from raven_tpu_torch import csrc
 
     load = csrc.load
     try:
-        csrc.load = lambda name: lib
+        csrc.load = lambda name: _Lib(lib)
         mod._FNS = None
-        lib_, *fns = mod._fns()
+        return mod._fns()
     finally:
         csrc.load = load
         mod._FNS = None
-    with open(src) as f:
-        takes_bw = "int BW, void* stream" in f.read()
-    if not takes_bw:
-        for fn in fns:
-            fn.argtypes = fn.argtypes[:-2] + fn.argtypes[-1:]
-        fns = [lambda *a, _f=fn: _f(*a[:-2], a[-1]) for fn in fns]
-    return (lib_, *fns)
 
 
 def main() -> int:
@@ -84,6 +101,7 @@ def main() -> int:
     from raven_tpu_torch import csrc
     from raven_tpu_torch.ops import band_cuda as bc
     from raven_tpu_torch.ops import banded_cuda as bdc
+    from raven_tpu_torch.ops import consensus_cuda as cc
     from raven_tpu_torch.utils.synth import make_windows
 
     if len(sys.argv) != 2 or not torch.cuda.is_available():
@@ -95,12 +113,11 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip(), flush=True)
 
-    csrc.build_all(["band", "banded"])
+    csrc.build_all(["consensus", "band", "banded"])
     fns = {}
-    for mod, name in ((bc, "band"), (bdc, "banded")):
+    for mod, name in ((cc, "consensus"), (bc, "band"), (bdc, "banded")):
         other_src = os.path.join(other_dir, f"{name}.cu")
-        fns[name] = {"this": mod._fns(),
-                     "other": _typed(mod, _build(name, other_src), other_src)}
+        fns[name] = {"this": mod._fns(), "other": _typed(mod, _build(name, other_src))}
 
     T, BW = cs.BAND_T, cs.BAND_BW
     cw, tl, fw, ql, r0 = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
@@ -111,7 +128,10 @@ def main() -> int:
                                          for a in cs.banded_cases()[0][1])
     Q = bfr.shape[1]
     banded_want = bdc.nw_moves_banded_plain(bcw, btl, bfr, bql, br0, br1, TB, Q, BW)
+    k2 = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in cs.consensus_chunk()[0]]
     kernels = [
+        ("K2", cc, "consensus", "votes_primitives_kernel",
+         lambda: cc.votes_primitives(*k2), cc.votes_primitives_plain(*k2)),
         ("K3", bc, "band", "band_forward_kernel",
          lambda: bc.band_forward(cw, tl, fw, ql, r0, T, BW), band_want),
         ("K4", bc, "band", "band_walk_kernel",
@@ -139,9 +159,9 @@ def main() -> int:
                 print(f"{name} of the {build} build differs from its plain version",
                       file=sys.stderr)
                 return 1
-    print("both builds bit-equal to the plain versions at [B, T, BW] = "
-          f"[{cw.shape[0]}, {T}, {BW}] and [B, T, Q, BW] = [{bcw.shape[0]}, {TB}, {Q}, {BW}], "
-          f"K3 at BW {cs.BAND_WIDTHS}",
+    print("both builds bit-equal to the plain versions at [B, T, Q] = "
+          f"{list(k2[0].shape) + [k2[2].shape[1]]}, [B, T, BW] = [{cw.shape[0]}, {T}, {BW}] "
+          f"and [B, T, Q, BW] = [{bcw.shape[0]}, {TB}, {Q}, {BW}], K3 at BW {cs.BAND_WIDTHS}",
           flush=True)
 
     res = {b: {k[0]: {"cuda_ms": [], "device_ms": []} for k in kernels}
@@ -151,7 +171,7 @@ def main() -> int:
             mod._FNS = fns[src][build]
             res[build][name]["cuda_ms"].append(cs.cuda_ms(fn))
             res[build][name]["device_ms"].append(cs.device_ms(fn, kernel))
-    bc._FNS = bdc._FNS = None
+    cc._FNS = bc._FNS = bdc._FNS = None
     for build in ("other", "this"):
         where = other_dir if build == "other" else os.path.dirname(csrc.source("band"))
         for name, *_ in kernels:

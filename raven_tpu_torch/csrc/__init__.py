@@ -23,6 +23,9 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
+# the shared memory an H100 block may have, static and dynamic: each
+# wrapper's launch_plan sizes its routes by it
+SMEM_BYTES = 227 * 1024
 _LIBS: dict[str, ctypes.CDLL] = {}
 # seconds from the start of a build_all call to each library's finish in
 # this process (absent when the library was already up to date), and what

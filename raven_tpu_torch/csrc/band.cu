@@ -130,6 +130,37 @@
 //     own staging routine: the general one, even with the width fixed at
 //     256, compiled to 54 more SASS instructions in the walk's loop and
 //     cost 5-6% of K4's device time on an H100.
+//   * Past those kernels' limits (BW above 512, or consensus rows too long
+//     for a block's shared memory: K3 holds round16(T + BW + 1) + round16(T)
+//     bytes for each of its 8 (GP 16) or 4 (GP 32) fragments, K4 2 * 32 *
+//     BW / 4 + round16(T + BW + 1) for each of its 16 beside 512 bytes of
+//     best-row tables, so T > 14,399 at BW = 256 for K3 and T > 10,143 at
+//     256 or 5,791 at 512 for K4), two more routes that keep nothing of T or
+//     of the band's width in shared memory.  The wrapper's launch_plan picks
+//     the route and its fragments a block from the shape; the launcher takes
+//     both.
+//     K3 "wide" (band_forward_wide_kernel): one fragment a block, BW / 16
+//     threads of 16 band lanes each (rounded up to whole warps, at most 1024:
+//     BW up to 16,384), the cells as above.  The consensus code and each
+//     thread's next base are read from device memory a row ahead (a warp's
+//     threads read 16 bytes apart, the same line for 8 rows).  The up value
+//     across a warp boundary goes through shared memory; the closure's carry
+//     across the block is an exclusive prefix max of (strip last + 64 k) over
+//     the strips k (the linear-gap recurrence across strips of 16 cells,
+//     max_m last_m + 16 GAP (k - 1 - m), written as a max scan: the same
+//     integers), a warp scan of shuffles and one pass over the warps' totals
+//     in shared memory, two block barriers a row.  No fixed point and no
+//     guess: a scan takes the same steps on every row.  Registers are the
+//     other kernels' (16 band lanes a thread); the ptxas line that
+//     chip_smoke.py prints shows no spill.
+//     K4 "direct" (band_walk_direct_kernel): a warp a fragment, four a block,
+//     the walk uniform over the warp and read straight from device memory:
+//     the move word at the walker (one address, broadcast), and when the
+//     move there is left, the row's words below it 32 at a time, one a lane,
+//     the highest word holding a move that is not left found by a ballot.
+//     The vote rows are zeroed by the warp first and lane 0 writes each vote
+//     where it is cast.  Each walked row is a dependent load from L2 or
+//     DRAM; staging only the words near the walker is later work.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // (see raven_tpu_torch/csrc/__init__.py); each launcher returns the CUDA
@@ -630,13 +661,252 @@ band_walk_kernel(const uint32_t* __restrict__ moves, const int32_t* __restrict__
   }
 }
 
+// K3's wide route: fragment blockIdx.x, thread k holding band lanes 16 k ..
+// 16 k + 15 (threads past BW / 16 take part in the barriers and shuffles,
+// read and store nothing)
+__global__ void __launch_bounds__(1024)
+band_forward_wide_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict__ t_lens,
+                         const uint8_t* __restrict__ fw_sh, const int32_t* __restrict__ q_lens,
+                         const int32_t* __restrict__ r0s, uint32_t* __restrict__ moves,
+                         int32_t* __restrict__ ends, int32_t* __restrict__ row0, long long B,
+                         int T, int BW) {
+  __shared__ int s_first[32];  // each warp's first previous-row value
+  __shared__ int s_tot[32];    // each warp's inclusive scan total
+  const long long b = blockIdx.x;
+  const int k = threadIdx.x;
+  const int warp = k >> 5, lane = k & 31;
+  const int n_warps = blockDim.x >> 5;
+  const int G = BW / C;
+  const bool live = k < G;
+  const int kHalf = BW / 2;
+  const int kWords = BW / 16;
+  const int SW = T + BW + 1;
+  const uint8_t* f_row = fw_sh + b * SW;
+  const int32_t* c_row = cw + b * T;
+  const int ql = q_lens[b], tl = t_lens[b], r0 = r0s[b];
+  const int u0 = k * C;
+  int prev[C];
+  uint32_t fb = 0;  // the bases of my band lanes on the next DP row, 2 bits each
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const int j = u0 + i - kHalf - r0;
+    prev[i] = (j >= 0 && j <= ql) ? j * kGap : kNeg;
+    if (live) fb |= static_cast<uint32_t>(f_row[1 + u0 + i] & 3) << (2 * i);
+  }
+  if (k == 0) row0[b] = ql * kGap;
+  const size_t row_words = static_cast<size_t>(B) * kWords;
+  uint32_t* mv_out = moves + b * kWords + k;
+  int32_t* end_out = ends + b;
+  // a row ahead: the consensus code, and the base at column r + 1 + u0 + 16
+  // that enters my last band lane on the row after
+  int tc_next = c_row[0];
+  uint32_t nb_next = live ? f_row[1 + u0 + C] & 3u : 0u;
+  for (int r = 0; r < T; ++r) {
+    const int jb = r + 1 + u0 - kHalf - r0;  // j of my first lane on DP row r + 1
+    const int tc = tc_next;
+    const uint32_t nb = nb_next;
+    if (r + 1 < T) {
+      tc_next = c_row[r + 1];
+      if (live) nb_next = f_row[r + 2 + u0 + C] & 3u;
+    }
+    // a code outside 0-3 never equals a fragment base
+    const uint32_t tch = (tc >= 0 && tc <= 3) ? static_cast<uint32_t>(tc) : 0xFFu;
+    // the next strip's first value of the previous row: a shuffle within
+    // the warp, shared memory across warps; NEG past the band's last lane
+    if (lane == 0) s_first[warp] = prev[0];
+    __syncthreads();
+    int up_in = __shfl_down_sync(kFull, prev[0], 1);
+    if (lane == 31) up_in = warp + 1 < n_warps ? s_first[warp + 1] : kNeg;
+    if (k == G - 1) up_in = kNeg;
+    const uint32_t x = fb ^ (tch * 0x55555555u);
+    const uint32_t mb = tch <= 3 ? ~(x | (x >> 1)) & 0x55555555u : 0u;  // 1: a match
+    int e[C];
+    uint32_t up_bits = 0;  // bit i: cell i's move is up (or it is column 0)
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int dg = prev[i] + (((mb >> (2 * i)) & 1u) ? kMatch : kMismatch);
+      const int up = (i + 1 < C ? prev[i + 1] : up_in) + kGap;
+      bool diag_won;
+      e[i] = __vibmax_s32(dg, up, &diag_won);
+      up_bits |= static_cast<uint32_t>(!diag_won) << i;
+    }
+    // the free consensus prefix: column j == 0 restarts at 0 with move up,
+    // before the closure
+    const int uz = kHalf + r0 - (r + 1);
+    if (uz >= 0 && uz < BW && k == uz / C) {
+      const uint32_t at = 1u << (uz % C);
+#pragma unroll
+      for (int i = 0; i < C; ++i) e[i] = (at >> i) & 1u ? 0 : e[i];
+      up_bits |= at;
+    }
+    // the left closure over my strip from no carry: its last value
+    int run = kNone;
+#pragma unroll
+    for (int i = 0; i < C; ++i) run = __viaddmax_s32(run, kGap, e[i]);
+    // my carry, max over the strips m < k of run_m + 16 GAP (k - 1 - m):
+    // an exclusive prefix max of run_m - 16 GAP m, less 16 GAP (k - 1)
+    int inc = live ? run - C * kGap * k : kNone;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc = max(inc, y);
+    }
+    if (lane == 31) s_tot[warp] = inc;
+    __syncthreads();
+    int exc = __shfl_up_sync(kFull, inc, 1);
+    if (lane == 0) exc = kNone;
+    for (int w = 0; w < warp; ++w) exc = max(exc, s_tot[w]);
+    const int carry = k == 0 ? kNone : exc + C * kGap * (k - 1);
+    // the closure again from the carry; bit i: cell i's move is left
+    int d[C];
+    uint32_t left_bits = 0;
+    run = carry;
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      run = __viaddmax_s32(run, kGap, e[i]);
+      d[i] = run;
+      left_bits |= static_cast<uint32_t>(run != e[i]) << i;
+    }
+    if (live) {
+      mv_out[static_cast<size_t>(r) * row_words] =
+          spread2(up_bits & ~left_bits) | (spread2(left_bits) << 1);
+    }
+    // lanes outside 0 <= j <= qlen hold NEG
+    if (jb >= 0 && jb + C - 1 <= ql) {
+#pragma unroll
+      for (int i = 0; i < C; ++i) prev[i] = d[i];
+    } else {
+      const int lo = max(-jb, 0), hi = min(ql - jb, C - 1);
+      const uint32_t in = lo <= hi ? ((2u << hi) - 1u) & ~((1u << lo) - 1u) : 0u;
+#pragma unroll
+      for (int i = 0; i < C; ++i) prev[i] = (in >> i) & 1u ? d[i] : kNeg;
+    }
+    // the row's end score: from the lane of column qlen, or NEG from the
+    // first thread when that column is outside the band
+    const int uq = ql + kHalf + r0 - (r + 1);
+    if (uq >= 0 && uq < BW) {
+      if (k == uq / C) {
+        const int v = pick(prev, uq % C);
+        end_out[static_cast<size_t>(r) * B] = r < tl ? max(v, kNeg) : kNeg;
+      }
+    } else if (k == 0) {
+      end_out[static_cast<size_t>(r) * B] = kNeg;
+    }
+    fb = (fb >> 2) | (nb << (2 * (C - 1)));
+  }
+}
+
+// K4's direct route: fragment 4 blockIdx.x + warp, the walk the same in
+// every lane of the warp
+__global__ void __launch_bounds__(32 * kWalkWarps)
+band_walk_direct_kernel(const uint32_t* __restrict__ moves, const int32_t* __restrict__ ends,
+                        const int32_t* __restrict__ row0, const uint8_t* __restrict__ fw_sh,
+                        const int32_t* __restrict__ q_lens, const int32_t* __restrict__ r0s,
+                        int32_t* __restrict__ votes, int32_t* __restrict__ ins, long long B,
+                        int T, int BW) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long b = static_cast<long long>(blockIdx.x) * kWalkWarps + warp;
+  if (b >= B) return;  // the whole warp
+  const int kHalf = BW / 2;
+  const int kWords = BW / 16;
+  // the best end score and the first row holding it
+  int best = INT_MIN, best_r = 0;
+  for (int t = lane; t < T; t += 32) {
+    const int x = ends[static_cast<size_t>(t) * B + b];
+    if (x > best) {
+      best = x;
+      best_r = t;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const int ov = __shfl_xor_sync(kFull, best, o);
+    const int orr = __shfl_xor_sync(kFull, best_r, o);
+    if (ov > best || (ov == best && orr < best_r)) {
+      best = ov;
+      best_r = orr;
+    }
+  }
+  const int t0 = row0[b] >= best ? 0 : best_r + 1;
+  const int ql = q_lens[b], r0 = r0s[b];
+  int32_t* v_row = votes + b * T;
+  int32_t* i_row = ins + b * (T + 1);
+  for (int t = lane; t < T; t += 32) v_row[t] = 0;
+  for (int t = lane; t <= T; t += 32) i_row[t] = 0;
+  __syncwarp();  // lane 0's votes land on the zeros
+  const uint8_t* f_row = fw_sh + b * (T + BW + 1);
+  const uint32_t* mv_frag = moves + b * kWords;
+  const size_t row_words = static_cast<size_t>(B) * kWords;
+  int p = -1;  // the walker's lane, -1: none
+  if (t0 >= 1) {
+    const int ui = ql + kHalf + r0 - t0;
+    if (ui >= 0 && ui < BW) p = ui;
+  }
+  for (int r = t0; r >= 1 && p >= 0; --r) {
+    const uint32_t* row = mv_frag + static_cast<size_t>(r - 1) * row_words;
+    const int ulo = 1 + kHalf + r0 - r;  // the lowest lane with j >= 1
+    const uint32_t wp = row[p >> 4];
+    int mvq = static_cast<int>((wp >> (2 * (p & 15))) & 3u);
+    int q = p;
+    if (mvq == 2 || p < ulo) {
+      if (mvq == 2 && p >= ulo && lane == 0) i_row[r] = 1 | (f_row[r + p] << 1);
+      // slide: the highest lane in [ulo, p] whose move is not left, the
+      // words from p's down, one a lane, 32 at a time
+      q = -1;
+      const int first = max(ulo, 0);
+      for (int w0 = p >> 4; w0 >= first >> 4 && q < 0; w0 -= 32) {
+        const int w = w0 - lane;
+        uint32_t word = 0, cand = 0;
+        if (w >= first >> 4) {
+          word = w == p >> 4 ? wp : row[w];
+          const int hi = w == p >> 4 ? p & 15 : 15;
+          const int lo = max(first - 16 * w, 0);
+          if (lo <= hi) {
+            const uint32_t top = hi == 15 ? ~0u : (1u << (2 * hi + 2)) - 1u;
+            cand = ~((word >> 1) & ~word) & top & ~((1u << (2 * lo)) - 1u) & 0x55555555u;
+          }
+        }
+        const unsigned found = __ballot_sync(kFull, cand != 0);
+        if (found != 0) {  // the lowest such lane holds the highest word
+          const int src = __ffs(found) - 1;
+          const uint32_t c = __shfl_sync(kFull, cand, src);
+          const uint32_t wd = __shfl_sync(kFull, word, src);
+          const int bit = (31 - __clz(c)) >> 1;
+          q = 16 * (w0 - src) + bit;
+          mvq = static_cast<int>((wd >> (2 * bit)) & 3u);
+        }
+      }
+    }
+    if (q < 0) {
+      p = -1;
+      break;
+    }
+    if (lane == 0) {
+      const int fq = f_row[r + q];
+      v_row[r - 1] = 1 | ((mvq == 0 ? (fq & 3) : 4) << 1) | ((fq >> 2) << 4);
+    }
+    const int nxt = q + (mvq != 0);  // diag: the same lane, up: the next
+    p = nxt < BW && nxt > ulo ? nxt : -1;  // j of nxt on row r - 1 above 1
+  }
+  if (t0 == 0) {
+    const int ui = ql + kHalf + r0;
+    if (ui >= 0 && ui < BW) p = ui;
+  }
+  if (lane == 0 && p >= 0 && p - kHalf - r0 >= 1) i_row[0] = 1 | (f_row[p] << 1);
+}
+
 template <typename Kernel>
 int launch_setup(Kernel kernel, long long B, int per_block, long long smem, unsigned* blocks) {
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  // the card refuses a block past its shared memory here; the wrapper's
+  // launch_plan sizes per_block so that it never asks for one
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // not left for the next launch's check to report
+      return static_cast<int>(e);
+    }
   }
   const long long n = (B + per_block - 1) / per_block;
   if (n > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -678,42 +948,98 @@ int launch_walk(const void* moves, const void* ends, const void* row0, const voi
 }
 
 bool supported(int T, int BW) { return T >= 1 && BW >= 16 && BW <= kMaxBW && BW % 16 == 0; }
+// the wide and direct routes: any T, BW up to 1024 threads of 16 lanes
+bool supported_wide(int T, int BW) {
+  return T >= 1 && BW >= 16 && BW <= 1024 * C && BW % 16 == 0;
+}
 
 }  // namespace
 
 extern "C" {
 
-// Launches K3 on `stream` over B fragments at a band of BW lanes (a
-// multiple of 16 up to 512): cw [B, T], t_lens, q_lens, r0 [B] int32, fw_sh
-// [B, T + BW + 1] uint8; moves [T, B, BW / 16], ends [T, B] and row0 [B]
-// int32 out.  BW = 256 runs its own instantiation, 16 lanes a fragment;
-// another width runs BW / 16 lanes of a 16-lane group up to 256, of a
-// warp above.  Returns the
-// CUDA error code of the launch (0 on success).
+// Each launcher takes, last, the fragments a block that the wrapper's
+// launch_plan gave its route (the route is the launcher called), and
+// refuses a count its kernels are not built for.  The count comes after
+// the stream, so that a build without the argument ignores it.
+
+// Launches K3's strip kernels on `stream` over B fragments at a band of BW
+// lanes (a multiple of 16 up to 512): cw [B, T], t_lens, q_lens, r0 [B]
+// int32, fw_sh [B, T + BW + 1] uint8; moves [T, B, BW / 16], ends [T, B]
+// and row0 [B] int32 out.  per_block 8 runs 16-lane groups (BW up to 256;
+// BW = 256 its own instantiation), 4 a warp a fragment (BW up to 512).
+// Returns the CUDA error code of the launch (0 on success).
 int raven_band_forward_launch(const void* cw, const void* t_lens, const void* fw_sh,
                               const void* q_lens, const void* r0, void* moves, void* ends,
-                              void* row0, long long B, int T, int BW, void* stream) {
+                              void* row0, long long B, int T, int BW, void* stream,
+                              int per_block) {
   if (B == 0) return 0;
   if (!supported(T, BW)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (BW == 256) return launch_forward<16, 256>(cw, t_lens, fw_sh, q_lens, r0, moves, ends, row0, B, T, BW, st);
-  if (BW < 256) return launch_forward<16, 0>(cw, t_lens, fw_sh, q_lens, r0, moves, ends, row0, B, T, BW, st);
-  return launch_forward<32, 0>(cw, t_lens, fw_sh, q_lens, r0, moves, ends, row0, B, T, BW, st);
+  if (per_block == kFwdWarps * 2 && BW <= 256) {
+    if (BW == 256) return launch_forward<16, 256>(cw, t_lens, fw_sh, q_lens, r0, moves, ends, row0, B, T, BW, st);
+    return launch_forward<16, 0>(cw, t_lens, fw_sh, q_lens, r0, moves, ends, row0, B, T, BW, st);
+  }
+  if (per_block == kFwdWarps && BW > 256) {
+    return launch_forward<32, 0>(cw, t_lens, fw_sh, q_lens, r0, moves, ends, row0, B, T, BW, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Launches K4 on `stream` over B fragments at a band of BW lanes: K3's
-// moves, ends and row0, with fw_sh, q_lens and r0 as K3 took them; votes
-// [B, T] and ins [B, T + 1] int32 out.  Returns the CUDA error code of the
-// launch (0 on success).
+// Launches K4's staged walk on `stream` over B fragments at a band of BW
+// lanes, per_block 16: K3's moves, ends and row0, with fw_sh, q_lens and
+// r0 as K3 took them; votes [B, T] and ins [B, T + 1] int32 out.  Returns
+// the CUDA error code of the launch (0 on success).
 int raven_band_walk_launch(const void* moves, const void* ends, const void* row0,
                            const void* fw_sh, const void* q_lens, const void* r0, void* votes,
-                           void* ins, long long B, int T, int BW, void* stream) {
+                           void* ins, long long B, int T, int BW, void* stream, int per_block) {
   if (B == 0) return 0;
-  if (!supported(T, BW)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!supported(T, BW) || per_block != kWalkFrags) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (BW == 256) return launch_walk<256, 16>(moves, ends, row0, fw_sh, q_lens, r0, votes, ins, B, T, BW, st);
   if (BW % 64 == 0) return launch_walk<0, 16>(moves, ends, row0, fw_sh, q_lens, r0, votes, ins, B, T, BW, st);
   return launch_walk<0, 4>(moves, ends, row0, fw_sh, q_lens, r0, votes, ins, B, T, BW, st);
+}
+
+// K3's wide route, one fragment a block (per_block 1), for any T and any BW
+// (a multiple of 16 up to 16,384): arguments and outputs as
+// raven_band_forward_launch.
+int raven_band_forward_wide_launch(const void* cw, const void* t_lens, const void* fw_sh,
+                                   const void* q_lens, const void* r0, void* moves, void* ends,
+                                   void* row0, long long B, int T, int BW, void* stream,
+                                   int per_block) {
+  if (B == 0) return 0;
+  if (!supported_wide(T, BW) || per_block != 1 || B > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int threads = (BW / C + 31) / 32 * 32;
+  band_forward_wide_kernel<<<static_cast<unsigned>(B), threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(cw), static_cast<const int32_t*>(t_lens),
+      static_cast<const uint8_t*>(fw_sh), static_cast<const int32_t*>(q_lens),
+      static_cast<const int32_t*>(r0), static_cast<uint32_t*>(moves),
+      static_cast<int32_t*>(ends), static_cast<int32_t*>(row0), B, T, BW);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4's direct route, a warp a fragment (per_block 4), for any T and any BW
+// K3's wide route takes: arguments and outputs as raven_band_walk_launch.
+int raven_band_walk_direct_launch(const void* moves, const void* ends, const void* row0,
+                                  const void* fw_sh, const void* q_lens, const void* r0,
+                                  void* votes, void* ins, long long B, int T, int BW,
+                                  void* stream, int per_block) {
+  if (B == 0) return 0;
+  if (!supported_wide(T, BW) || per_block != kWalkWarps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long blocks = (B + per_block - 1) / per_block;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  band_walk_direct_kernel<<<static_cast<unsigned>(blocks), 32 * kWalkWarps, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(moves), static_cast<const int32_t*>(ends),
+      static_cast<const int32_t*>(row0), static_cast<const uint8_t*>(fw_sh),
+      static_cast<const int32_t*>(q_lens), static_cast<const int32_t*>(r0),
+      static_cast<int32_t*>(votes), static_cast<int32_t*>(ins), B, T, BW);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* raven_cuda_error_string(int code) {

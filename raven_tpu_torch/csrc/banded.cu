@@ -156,6 +156,22 @@
 //     packed fragment holds the band's BW / 16 + 1 words, and the columns
 //     past Q carry the fragment's last code as raven_tpu's clipped gather
 //     gives them.
+//   * Any fragment length.  K9 keeps 8 fragments a block at BW = 256 (16 at
+//     128) whatever Q is; each fragment's packed codes take forward_words(Q,
+//     BW) words of shared memory, which at BW = 256 hold Q up to 55,887 in
+//     the 227 KB a block may have.  Past that the codes go to a scratch in
+//     device memory that the wrapper allocates (kGlobalCodes, the "global"
+//     route; raven_nw_moves_banded_global_launch): the kernel packs them
+//     there as it packs them into shared memory, and each row reads its four
+//     words from there (L1 hits: a lane reads the same two words for 16
+//     rows), with only the regather row in shared memory.  The wrapper's
+//     launch_plan picks the route and its fragments a block from the shape;
+//     the launcher takes both.  K10's shared memory
+//     depends on neither Q nor T, so K10 has one route.  Band starts are
+//     (row - r0) * q / span in int32, as raven_tpu and the plain version
+//     compute them: below 2^31 while T * Q is, and wrapping like theirs
+//     past it; every other position (a column, a row, a step) stays below
+//     T + Q, and device-memory offsets are 64-bit.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // (see raven_tpu_torch/csrc/__init__.py); each launcher returns the CUDA
@@ -172,7 +188,6 @@ constexpr int kMatch = 3;
 constexpr int kMismatch = -5;
 constexpr int kGap = -4;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kMaxQ = 8192;       // the longest padded fragment taken
 // the closure's carry into lane 0: never wins, and never wraps when GAP is
 // added a band's width of times
 constexpr int kNone = -(1 << 30);
@@ -215,9 +230,11 @@ __host__ __device__ constexpr int code_words(int Q, int bw) {
 }
 // K9's regather row: band lane s at rpad(s), one padding word every C
 __host__ __device__ constexpr int rpad(int s) { return s + s / C; }
-// words of shared memory a K9 fragment uses
+// words of shared memory a K9 fragment uses: its packed codes (none when
+// they are in device memory) and its regather row
+__host__ __device__ constexpr int row_words_smem(int bw) { return round4(rpad(bw) + 1); }
 __host__ __device__ constexpr int forward_words(int Q, int bw) {
-  return round4(2 * code_words(Q, bw)) + round4(rpad(bw) + 1);
+  return round4(2 * code_words(Q, bw)) + row_words_smem(bw);
 }
 
 template <int BW>
@@ -291,14 +308,16 @@ __device__ __forceinline__ uint32_t row_cells(const int (&p)[C], const int (&pd)
   return up_bits;
 }
 
-template <int BW>
+// kGlobalCodes: the packed codes in `codes` ([B, 2 code_words(Q, BW)]
+// words of device memory), else in shared memory (`codes` unused)
+template <int BW, bool kGlobalCodes>
 __global__ void __launch_bounds__(32 * kFwdWarps)
 nw_moves_banded_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict__ t_lens,
                        const int32_t* __restrict__ frags, const int32_t* __restrict__ q_lens,
                        const int32_t* __restrict__ r0s, const int32_t* __restrict__ r1s,
                        uint32_t* __restrict__ moves, int32_t* __restrict__ offs,
                        int32_t* __restrict__ ends, int32_t* __restrict__ row0, long long B,
-                       int T, int Q) {
+                       int T, int Q, uint32_t* codes) {
   constexpr int kWords = Band<BW>::kWords;
   constexpr int kFwdGroup = Band<BW>::kFwdGroup;
   constexpr int kFwdFrags = Band<BW>::kFwdFrags;
@@ -315,9 +334,16 @@ nw_moves_banded_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict
   const bool valid = bw0 + g < B;
   const long long b = valid ? bw0 + g : B - 1;
   const int PW = code_words(Q, BW);
-  uint32_t* s_code = smem_fwd + fl * forward_words(Q, BW);  // 2-bit codes
-  uint32_t* s_base = s_code + PW;                        // 1 at a base (0-3)
-  int* s_row = reinterpret_cast<int*>(s_code + round4(2 * PW));  // the regather row
+  uint32_t* s_code;  // 2-bit codes
+  int* s_row;        // the regather row
+  if constexpr (kGlobalCodes) {
+    s_code = codes + b * 2 * PW;
+    s_row = reinterpret_cast<int*>(smem_fwd + fl * row_words_smem(BW));
+  } else {
+    s_code = smem_fwd + fl * forward_words(Q, BW);
+    s_row = reinterpret_cast<int*>(s_code + round4(2 * PW));
+  }
+  uint32_t* s_base = s_code + PW;  // 1 at a base (0-3)
 
   const int32_t* f_row = frags + b * Q;
   for (int w = sub; w < PW; w += kFwdGroup) {
@@ -335,8 +361,12 @@ nw_moves_banded_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict
         }
       }
     }
-    s_code[w] = code;
-    s_base[w] = base;
+    // a fragment past B packs the last one's codes: in device memory the
+    // last one's own lanes store them
+    if (!kGlobalCodes || valid) {
+      s_code[w] = code;
+      s_base[w] = base;
+    }
   }
   if (sub == 0) s_row[rpad(BW)] = kNeg;  // past the band's end
 
@@ -791,18 +821,25 @@ traceback_banded_kernel(const uint32_t* __restrict__ moves, const int32_t* __res
   }
 }
 
-bool supported(int T, int Q, int BW) {
-  return T >= 1 && Q >= 1 && Q <= kMaxQ && (BW == 128 || BW == 256);
+bool supported(int T, int Q, int BW) { return T >= 1 && Q >= 1 && (BW == 128 || BW == 256); }
+// K9 also takes the fragments a block its instantiation is built for
+bool supported(int T, int Q, int BW, int per_block) {
+  return supported(T, Q, BW) &&
+         per_block == (BW == 128 ? Band<128>::kFwdFrags : Band<256>::kFwdFrags);
 }
 
 template <typename Kernel>
 int launch_setup(Kernel kernel, long long B, int per_block, long long smem, unsigned* blocks) {
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  // raised on every launch: the limit belongs to the current device
+  // raised on every launch: the limit belongs to the current device.  The
+  // card refuses a block past its shared memory here; the wrapper's
+  // launch_plan picks the route so that it never asks for one
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // not left for the next launch's check to report
+      return static_cast<int>(e);
+    }
   }
   const long long n = (B + per_block - 1) / per_block;
   if (n > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -810,21 +847,25 @@ int launch_setup(Kernel kernel, long long B, int per_block, long long smem, unsi
   return 0;
 }
 
-template <int BW>
+template <int BW, bool kGlobalCodes>
 int launch_forward(const void* cw, const void* t_lens, const void* frags, const void* q_lens,
                    const void* r0, const void* r1, void* moves, void* offs, void* ends,
-                   void* row0, long long B, int T, int Q, cudaStream_t stream) {
+                   void* row0, long long B, int T, int Q, void* codes, cudaStream_t stream) {
   constexpr int kFwdFrags = Band<BW>::kFwdFrags;
-  const long long smem = static_cast<long long>(kFwdFrags) * forward_words(Q, BW) * 4;
+  const long long words = kGlobalCodes ? row_words_smem(BW) : forward_words(Q, BW);
+  const long long smem = static_cast<long long>(kFwdFrags) * words * 4;
   unsigned blocks = 0;
-  const int err = launch_setup(nw_moves_banded_kernel<BW>, B, kFwdFrags, smem, &blocks);
+  const int err =
+      launch_setup(nw_moves_banded_kernel<BW, kGlobalCodes>, B, kFwdFrags, smem, &blocks);
   if (err != 0) return err;
-  nw_moves_banded_kernel<BW><<<blocks, 32 * kFwdWarps, static_cast<size_t>(smem), stream>>>(
-      static_cast<const int32_t*>(cw), static_cast<const int32_t*>(t_lens),
-      static_cast<const int32_t*>(frags), static_cast<const int32_t*>(q_lens),
-      static_cast<const int32_t*>(r0), static_cast<const int32_t*>(r1),
-      static_cast<uint32_t*>(moves), static_cast<int32_t*>(offs), static_cast<int32_t*>(ends),
-      static_cast<int32_t*>(row0), B, T, Q);
+  nw_moves_banded_kernel<BW, kGlobalCodes>
+      <<<blocks, 32 * kFwdWarps, static_cast<size_t>(smem), stream>>>(
+          static_cast<const int32_t*>(cw), static_cast<const int32_t*>(t_lens),
+          static_cast<const int32_t*>(frags), static_cast<const int32_t*>(q_lens),
+          static_cast<const int32_t*>(r0), static_cast<const int32_t*>(r1),
+          static_cast<uint32_t*>(moves), static_cast<int32_t*>(offs),
+          static_cast<int32_t*>(ends), static_cast<int32_t*>(row0), B, T, Q,
+          static_cast<uint32_t*>(codes));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -852,23 +893,46 @@ int launch_walk(const void* moves, const void* offs, const void* ends, const voi
 extern "C" {
 
 // Launches K9 on `stream` over B fragments at a band of BW = 128 or 256
-// lanes (needs 1 <= Q <= 8192, T >= 1): cw [B, T], frags [B, Q], t_lens,
+// lanes (T, Q >= 1, and the packed codes of a block's fragments within its
+// shared memory: Q up to 55,887 at 256): cw [B, T], frags [B, Q], t_lens,
 // q_lens, r0, r1 [B] int32; moves [T, B, BW / 16], offs and ends [T, B],
-// row0 [B] int32 out.  Returns the CUDA error code of the launch (0 on
+// row0 [B] int32 out.  per_block, after the stream, is the fragments a
+// block that the wrapper's launch_plan gave (16 at 128, 8 at 256); another
+// count is refused.  Returns the CUDA error code of the launch (0 on
 // success).
 int raven_nw_moves_banded_launch(const void* cw, const void* t_lens, const void* frags,
                                  const void* q_lens, const void* r0, const void* r1,
                                  void* moves, void* offs, void* ends, void* row0,
-                                 long long B, int T, int Q, int BW, void* stream) {
+                                 long long B, int T, int Q, int BW, void* stream,
+                                 int per_block) {
   if (B == 0) return 0;
-  if (!supported(T, Q, BW)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!supported(T, Q, BW, per_block)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (BW == 128) {
-    return launch_forward<128>(cw, t_lens, frags, q_lens, r0, r1, moves, offs, ends, row0, B,
-                               T, Q, st);
+    return launch_forward<128, false>(cw, t_lens, frags, q_lens, r0, r1, moves, offs, ends,
+                                      row0, B, T, Q, nullptr, st);
   }
-  return launch_forward<256>(cw, t_lens, frags, q_lens, r0, r1, moves, offs, ends, row0, B, T,
-                             Q, st);
+  return launch_forward<256, false>(cw, t_lens, frags, q_lens, r0, r1, moves, offs, ends, row0,
+                                    B, T, Q, nullptr, st);
+}
+
+// K9 with the packed codes in device memory, for any Q: as
+// raven_nw_moves_banded_launch, with `codes` a scratch of B * 2 *
+// code_words(Q, BW) 32-bit words.
+int raven_nw_moves_banded_global_launch(const void* cw, const void* t_lens, const void* frags,
+                                        const void* q_lens, const void* r0, const void* r1,
+                                        void* moves, void* offs, void* ends, void* row0,
+                                        void* codes, long long B, int T, int Q, int BW,
+                                        void* stream, int per_block) {
+  if (B == 0) return 0;
+  if (!supported(T, Q, BW, per_block)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (BW == 128) {
+    return launch_forward<128, true>(cw, t_lens, frags, q_lens, r0, r1, moves, offs, ends,
+                                     row0, B, T, Q, codes, st);
+  }
+  return launch_forward<256, true>(cw, t_lens, frags, q_lens, r0, r1, moves, offs, ends, row0,
+                                   B, T, Q, codes, st);
 }
 
 // Launches K10 on `stream` over B fragments at a band of BW = 128 or 256

@@ -68,7 +68,9 @@
 //     takes the best row.
 //   * Moves: one 32-bit word per lane and step (8 columns x 2 halves x 2
 //     bits), stored at (step, lane), so a step's 32 stores are one
-//     128-byte line.  Code 3 (up and left both won) reads as left.
+//     128-byte line.  Code 3 (up and left both won) reads as left.  The
+//     move bits are taken before the positions left of a half's column 1
+//     are held at D'[r][0] (see forward_tile).
 //   * The walk: lane 0 walks half 0 and lane 1 half 1.  When a walker
 //     leaves its box of moves, the warp loads, for both walkers in one
 //     batch, the box ahead of each (64 steps x 8 lanes of one tile: the
@@ -79,6 +81,30 @@
 //   * One warp a block; shared memory per warp is ~6T + 2Q words, so a
 //     T = 640 chunk holds ~10 warps an SM, more than the 8 a 2,048-row
 //     chunk puts there.  Registers (~128 a thread) are not the limit.
+//
+// The int32 route (votes_primitives_i32_kernel), for every shape the pair
+// route refuses: Q > 1024, 4Q + 3T + 8 > 0xC000 (the 16-bit range), or a
+// warp's 6T + 2Q + 99 words past a block's 227 KB of shared memory (T >
+// 9,412 at Q = 768, which binds before the 16-bit range does).  The
+// wrapper's launch_plan picks the route and its fragments a block from the
+// shape, and the launcher takes both; it refuses Q >= 262,144, where an end
+// value can reach the sentinel kNeg = -2^20 (D >= -4Q) that the best-row
+// choice reads as "no end value yet".  One fragment a
+// warp, one cell to a 32-bit value: D itself, no row shift and no bias, the
+// moves and ties of the plain version (which is int32 already).  The rows
+// are the pair route's lane-pipelined 256-column tiles (8 columns a lane,
+// the add-max pairs one scalar VIADDMNMX each), with each half's 2-bit
+// fields in one 16-bit move word a lane and step; the traceback is the pair
+// route's, one walker (lane 0) in 64-step x 8-lane boxes of moves loaded by
+// the warp into shared memory.  Nothing that grows with T or Q is in shared
+// memory: the consensus codes are read from device memory a step ahead (a
+// step's 32 lanes read 32 neighbouring words), the tile boundary column
+// (each row's end value after the last tile) goes to a scratch of T + 1
+// words a fragment in device memory (lane 31 writes a row, lane 0 of the
+// next tile reads it a step ahead, a 128-byte line serving 32 rows), the
+// fragment's bases and weights are read where the walk reaches them, and
+// the walk writes each primitive to the outputs, which the warp first fills
+// with "no vote".  Values stay within 4 (T + Q) of 0.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C
 // interface (see raven_tpu_torch/csrc/__init__.py); the launcher returns
@@ -91,6 +117,8 @@ namespace {
 
 constexpr int kC = 8;               // columns a lane
 constexpr int kTile = 32 * kC;      // columns a tile
+constexpr int kMatch = 3;
+constexpr int kMismatch = -5;
 constexpr int kGap = -4;
 constexpr int kNeg = -(1 << 20);    // no end value yet
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -167,9 +195,14 @@ __device__ __forceinline__ void forward_tile(
 #pragma unroll
       for (int i = 0; i < kC; ++i) {
         uint32_t d = addmax2(left, kGap2, ev[i]);
-        if (kMasked) d = (d & keep[i]) | (fill & ~keep[i]);
         word += nonzero2(ev[i] - dg[i]) << (2 * i);  // up won
         word += nonzero2(d - ev[i]) << (2 * i + 1);  // left won
+        // the mask after the move bits: in each half d >= ev, so the
+        // subtraction above never borrows across the halves.  A held value
+        // (D'[r][0]) can lie below ev (a pad code -1 past a half's
+        // consensus "matches" the masked fragment code -1), and a borrow
+        // from the low half would set the high half's left bit.
+        if (kMasked) d = (d & keep[i]) | (fill & ~keep[i]);
         prev[i] = d;
         left = d;
       }
@@ -441,9 +474,258 @@ votes_primitives_kernel(const int32_t* __restrict__ cw,
   }
 }
 
+// ------------------------------------------------------------ int32 route
+
+// One tile of the int32 route's forward: as forward_tile, one fragment,
+// D unshifted; moves one 16-bit word a lane and step.
+template <bool kMasked>
+__device__ __forceinline__ void forward_tile_i32(
+    const int (&fc)[kC], int (&prev)[kC], uint32_t keep, int dleft, const int32_t* c_row,
+    int32_t* bnd, uint16_t* mv_tile, int lane, bool first_tile, int tmax, int T) {
+  int lin = 0;
+  // this step's consensus code and (lane 0) left boundary, loaded a step
+  // ahead; rows outside the consensus read 0 and are never computed
+  auto code = [&](int t) { return t >= 0 && t < T ? c_row[t] : 0; };
+  int tch = code(-lane);
+  int bndv = first_tile || tmax < 1 ? 0 : bnd[1];
+  uint16_t* mvp = mv_tile + lane;
+  for (int s = 0; s < tmax + 31; ++s) {
+    const int rho = s - lane;
+    if (lane == 0) lin = first_tile ? 0 : bndv;  // D[rho + 1][0] = 0
+    const int tch_next = code(rho + 1);
+    const int bnd_next = lane == 0 && !first_tile && rho + 2 <= tmax ? bnd[rho + 2] : 0;
+    if (rho >= 0 && rho < tmax) {
+      int ev[kC], dg[kC];
+#pragma unroll
+      for (int i = kC - 1; i >= 0; --i) {
+        const int dl = i > 0 ? prev[i - 1] : dleft;  // D[rho][column - 1]
+        dg[i] = dl + (fc[i] == tch ? kMatch : kMismatch);
+        ev[i] = __viaddmax_s32(prev[i], kGap, dg[i]);
+      }
+      int left = lin;  // D[rho + 1][strip - 1]
+      uint32_t word = 0;
+#pragma unroll
+      for (int i = 0; i < kC; ++i) {
+        int d = __viaddmax_s32(left, kGap, ev[i]);
+        if (kMasked && !((keep >> i) & 1u)) d = 0;  // left of column 1: D[r][0]
+        word |= static_cast<uint32_t>(ev[i] != dg[i]) << (2 * i);      // up won
+        word |= static_cast<uint32_t>(d != ev[i]) << (2 * i + 1);      // left won
+        prev[i] = d;
+        left = d;
+      }
+      dleft = lin;
+      *mvp = static_cast<uint16_t>(word);
+      if (lane == 31) bnd[rho + 1] = prev[kC - 1];
+    }
+    tch = tch_next;
+    bndv = bnd_next;
+    mvp += 32;
+    lin = __shfl_up_sync(kFull, prev[kC - 1], 1);
+  }
+}
+
+__global__ void __launch_bounds__(32)
+votes_primitives_i32_kernel(const int32_t* __restrict__ cw,
+                            const int32_t* __restrict__ tlens,
+                            const int32_t* __restrict__ frags,
+                            const int32_t* __restrict__ qlens,
+                            const int32_t* __restrict__ wts,
+                            uint16_t* __restrict__ moves,
+                            int32_t* bnd_all,
+                            int32_t* __restrict__ col_sym,
+                            int32_t* __restrict__ col_w,
+                            int32_t* __restrict__ ins_b,
+                            int32_t* __restrict__ ins_w,
+                            long long B, int T, int Q) {
+  __shared__ uint16_t s_box[kBox];  // the walker's box of moves
+  const int lane = threadIdx.x;
+  const long long b = blockIdx.x;
+  const int tl = min(max(tlens[b], 0), T);
+  const int ql = min(max(qlens[b], 0), Q);
+  // a fragment without bases needs no row (its walk writes nothing)
+  const int tmax = ql > 0 ? tl : 0;
+  const int kt = tiles(ql);
+  const int off = kt * kTile - ql;  // column qlen is the last tile's last
+  const int T31 = T + 31;
+  int32_t* cs = col_sym + b * T;
+  int32_t* cwt = col_w + b * T;
+  int32_t* ib = ins_b + b * (T + 1);
+  int32_t* iw = ins_w + b * (T + 1);
+  for (int t = lane; t < T; t += 32) {
+    cs[t] = 5;
+    cwt[t] = 0;
+  }
+  for (int t = lane; t <= T; t += 32) {
+    ib[t] = -1;
+    iw[t] = 0;
+  }
+  const int32_t* c_row = cw + b * T;
+  const int32_t* f_row = frags + b * Q;
+  const int32_t* w_row = wts + b * Q;
+  int32_t* bnd = bnd_all + b * (T + 1);
+  uint16_t* mv_frag = moves + static_cast<size_t>(b) * tiles(Q) * T31 * 32;
+
+  // forward, tile by tile
+  for (int k = 0; k < kt; ++k) {
+    const int p0 = k * kTile + lane * kC;
+    int fc[kC], prev[kC];
+    uint32_t keep = 0;
+#pragma unroll
+    for (int i = 0; i < kC; ++i) {
+      const int c = p0 + i - off;  // fragment column, j = c + 1
+      fc[i] = c >= 0 ? f_row[c] : -1;
+      prev[i] = c >= 0 ? (c + 1) * kGap : 0;  // row 0
+      keep |= static_cast<uint32_t>(c >= 0) << i;
+    }
+    const int jl = p0 - off;  // column j of position p0 - 1
+    const int dleft = jl >= 1 ? jl * kGap : 0;
+    uint16_t* mv_tile = mv_frag + static_cast<size_t>(k) * T31 * 32;
+    if (k * kTile < off) {
+      forward_tile_i32<true>(fc, prev, keep, dleft, c_row, bnd, mv_tile, lane, k == 0, tmax, T);
+    } else {
+      forward_tile_i32<false>(fc, prev, keep, dleft, c_row, bnd, mv_tile, lane, k == 0, tmax, T);
+    }
+    __syncwarp();
+  }
+
+  // the best end value over the rows: the first maximal row wins
+  int best_v = kNeg, best_r = 0;
+  for (int rr = lane; rr < tmax; rr += 32) {
+    const int x = bnd[rr + 1];
+    if (x > best_v) {
+      best_v = x;
+      best_r = rr;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const int ov = __shfl_xor_sync(kFull, best_v, o);
+    const int orr = __shfl_xor_sync(kFull, best_r, o);
+    if (ov > best_v || (ov == best_v && orr < best_r)) {
+      best_v = ov;
+      best_r = orr;
+    }
+  }
+
+  // the walk, lane 0; the warp loads its boxes
+  int wt = 0, wj = 0, wprev = 3;
+  if (lane == 0) {
+    wj = ql;
+    wt = ql * kGap >= best_v ? 0 : best_r + 1;
+  }
+  int bk = -1, bs0 = 0, bl0 = 0;  // the walker's box: tile, first step, first lane
+  while (true) {
+    const bool walking = lane == 0 && wj > 0;
+    int k = 0, s = 0, lam = 0;
+    bool need = false;
+    if (walking && wt > 0) {
+      const unsigned p = wj - 1 + off;  // strip position of column j
+      k = p / kTile;
+      lam = (p / kC) % 32;
+      s = wt - 1 + lam;
+      need = k != bk || static_cast<unsigned>(lam - bl0) >= kBoxLanes ||
+             static_cast<unsigned>(s - bs0) >= kBoxRows;
+    }
+    if (__ballot_sync(kFull, walking) == 0) break;
+    if (__shfl_sync(kFull, need, 0)) {  // warp-uniform
+      const int fk = __shfl_sync(kFull, k, 0);
+      const int s0 = max(__shfl_sync(kFull, s, 0) - (kBoxRows - 1), 0);
+      const int l0 = max(__shfl_sync(kFull, lam, 0) - (kBoxLanes - 1), 0);
+      if (lane == 0) {
+        bk = fk;
+        bs0 = s0;
+        bl0 = l0;
+      }
+      const uint16_t* src = mv_frag + static_cast<size_t>(fk) * T31 * 32;
+      uint16_t v[kBox / 32];
+#pragma unroll
+      for (int m = 0; m < kBox / 32; ++m) {
+        const int e = lane + 32 * m;
+        const int sr = s0 + e / kBoxLanes;
+        v[m] = sr < T31 ? src[static_cast<size_t>(sr) * 32 + l0 + e % kBoxLanes] : 0;
+      }
+#pragma unroll
+      for (int m = 0; m < kBox / 32; ++m) s_box[lane + 32 * m] = v[m];
+    }
+    __syncwarp();
+    if (walking) {
+      // the walker's column as a strip position, and its step and lane in
+      // the box, kept up to date move by move (the box holds it on entry)
+      unsigned p = wj - 1 + off;
+      int bl = static_cast<int>((p / kC) % 32) - bl0;
+      int bs = wt - 1 + bl + bl0 - bs0;
+      uint32_t word = wt > 0 ? s_box[bs * kBoxLanes + bl] : 0u;  // under the walker
+      while (wj > 0) {
+        const uint32_t pk = static_cast<uint32_t>(min(max(f_row[wj - 1], 0), 3)) |
+                            (static_cast<uint32_t>(w_row[wj - 1]) << 2);
+        const bool edge = p % kC == 0;  // a move left leaves the lane's strip
+        // the words the next position can fall on, loaded before the move
+        // is known (as in the pair route's walk)
+        const int iu = (bs - 1) * kBoxLanes + bl;
+        const uint32_t w_up = bs >= 1 ? s_box[iu] : 0u;
+        const uint32_t w_dg = edge && bs >= 2 && bl >= 1 ? s_box[iu - kBoxLanes - 1] : 0u;
+        const uint32_t w_lf = edge && bs >= 1 && bl >= 1 ? s_box[iu - 1] : 0u;
+        // row 0: left only; code 3 (up and left both won) reads as left
+        const uint32_t mv = wt > 0 ? min((word >> (2 * (p % kC))) & 3u, 2u) : 2u;
+        const uint32_t fb = pk & 3u;
+        const uint32_t fwt = static_cast<uint32_t>(static_cast<int32_t>(pk) >> 2);
+        const bool vote = mv <= 1;
+        const bool ins = mv == 2 && wprev != 2;
+        // the pair route's packed primitives, decoded as it decodes them
+        if (vote) {
+          const int pc = static_cast<int32_t>(1u | ((mv == 0 ? fb : 4u) << 1) | (fwt << 4));
+          cs[wt - 1] = (pc >> 1) & 7;
+          cwt[wt - 1] = pc >> 4;
+        }
+        if (ins) {
+          const int pi = static_cast<int32_t>(1u | (fb << 1) | (fwt << 3));
+          ib[wt] = (pi >> 1) & 3;
+          iw[wt] = pi >> 3;
+        }
+        const int dt = vote ? 1 : 0;
+        const int dj = mv != 1 ? 1 : 0;
+        const int wrap = dj && edge ? 1 : 0;
+        wt -= dt;
+        wj -= dj;
+        p -= dj;
+        bl -= wrap;
+        bs -= dt + wrap;
+        wprev = static_cast<int>(mv);
+        word = mv == 1 ? w_up : mv == 0 ? (edge ? w_dg : w_up) : (edge ? w_lf : word);
+        if (wt > 0 && wj > 0 && (bs | bl) < 0) break;  // past the box: the warp loads the next
+      }
+    }
+    __syncwarp();
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// Launches K2's int32 route on `stream` over B fragments, one a block
+// (per_block 1), for any T, Q >= 1: inputs and outputs as
+// raven_votes_primitives_launch; moves a scratch of a 16-bit word a lane
+// and step (T + 31 steps a tile, ceil(Q / 256) tiles a fragment), bnd one
+// of B * (T + 1) int32.
+int raven_votes_primitives_i32_launch(const void* cw, const void* tlens, const void* frags,
+                                      const void* qlens, const void* wts, void* moves,
+                                      void* bnd, void* col_sym, void* col_w, void* ins_b,
+                                      void* ins_w, long long B, int T, int Q, void* stream,
+                                      int per_block) {
+  if (B == 0) return 0;
+  if (T < 1 || Q < 1 || per_block != 1 || B > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  votes_primitives_i32_kernel<<<static_cast<unsigned>(B), 32, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(cw), static_cast<const int32_t*>(tlens),
+      static_cast<const int32_t*>(frags), static_cast<const int32_t*>(qlens),
+      static_cast<const int32_t*>(wts), static_cast<uint16_t*>(moves),
+      static_cast<int32_t*>(bnd), static_cast<int32_t*>(col_sym), static_cast<int32_t*>(col_w),
+      static_cast<int32_t*>(ins_b), static_cast<int32_t*>(ins_w), B, T, Q);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // 32-bit words of move scratch the launcher needs for [B, T, Q] (0 when
 // the shape is not supported: Q outside 1..1024, T < 1, or 4Q + 3T + 8 >
@@ -453,27 +735,33 @@ long long raven_votes_moves_words(long long B, int T, int Q) {
   return (B + 1) / 2 * tiles(Q) * (T + 31LL) * 32;
 }
 
-// Launches K2 on `stream` over B fragments: cw [B, T], frags and wts
-// [B, Q], tlens and qlens [B], all int32; moves is the scratch of
-// raven_votes_moves_words(B, T, Q) words; col_sym, col_w [B, T] and ins_b,
-// ins_w [B, T + 1] int32 out.  Returns the CUDA error code of the launch
-// (0 on success).
+// Launches K2's pair route on `stream` over B fragments, two a block
+// (per_block 2): cw [B, T], frags and wts [B, Q], tlens and qlens [B], all
+// int32; moves is the scratch of raven_votes_moves_words(B, T, Q) words;
+// col_sym, col_w [B, T] and ins_b, ins_w [B, T + 1] int32 out.  per_block
+// comes after the stream, as the wrapper's launch_plan gives it, so that a
+// build without the argument ignores it; the card refuses a warp's shared
+// memory past a block's, which launch_plan never asks for.  Returns the
+// CUDA error code of the launch (0 on success).
 int raven_votes_primitives_launch(const void* cw, const void* tlens,
                                   const void* frags, const void* qlens,
                                   const void* wts, void* moves, void* col_sym,
                                   void* col_w, void* ins_b, void* ins_w,
-                                  long long B, int T, int Q, void* stream) {
+                                  long long B, int T, int Q, void* stream, int per_block) {
   if (B == 0) return 0;
-  if (!supported(T, Q)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!supported(T, Q) || per_block != 2) return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = smem_words(T, Q) * static_cast<long long>(sizeof(uint32_t));
   if (smem > 48 * 1024) {
     if (smem > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t e = cudaFuncSetAttribute(
         votes_primitives_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // not left for the next launch's check to report
+      return static_cast<int>(e);
+    }
   }
-  const long long blocks = (B + 1) / 2;
+  const long long blocks = (B + per_block - 1) / per_block;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   votes_primitives_kernel<<<static_cast<unsigned int>(blocks), 32,
                             static_cast<size_t>(smem),

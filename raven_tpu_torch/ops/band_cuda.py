@@ -16,7 +16,11 @@ where raven_tpu sums with one-hot float32 matmuls) and `band_votes` the walk
 and the epilogue together: the drop-in for raven_tpu's mask_walk_votes.
 
 `LAUNCHES` counts kernel launches per kernel, so a run can show that its main
-path went through the kernels.
+path went through the kernels, and `ROUTE_LAUNCHES` per route: `launch_plan`
+picks, from the shape, K3's strip kernels ("band_forward") or its wide one
+("band_forward_wide", BW above 512 or consensus rows past a block's shared
+memory), and K4's staged walk ("mask_walk_votes") or its direct one
+("mask_walk_votes_direct").
 """
 
 from __future__ import annotations
@@ -25,12 +29,18 @@ import ctypes
 
 import torch
 
+from raven_tpu_torch.csrc import SMEM_BYTES
+
 NEG = -(1 << 20)
 MATCH, MISMATCH, GAP = 3, -5, -4
-# the widest band the kernels take: K3 holds 16 band lanes a lane, at most
-# a warp's 32 lanes a fragment (raven_tpu takes any multiple of 16)
-KERNEL_MAX_BW = 512
+# the widest band the kernels take: K3 holds 16 band lanes a thread, at
+# most a block's 1024 threads a fragment (raven_tpu takes any multiple of 16)
+KERNEL_MAX_BW = 16384
+STRIP_MAX_BW = 512  # the strip kernels: at most a warp's 32 lanes a fragment
+WALK_STATIC_BYTES = 2 * 4 * 16 * 4  # K4's best-row tables, beside its staging
 LAUNCHES = {"band_forward": 0, "mask_walk_votes": 0}
+ROUTE_LAUNCHES = {"band_forward": 0, "band_forward_wide": 0, "mask_walk_votes": 0,
+                  "mask_walk_votes_direct": 0}
 
 
 def _word_bits(x):
@@ -191,19 +201,45 @@ def _check(named, device):
 def check_kernel_shape(T: int, BW: int):
     """Raise ValueError on a shape the card kernels do not take: BW not a
     multiple of 16 (raven_tpu packs a row's moves in BW / 16 words), BW
-    above KERNEL_MAX_BW, or T < 1."""
+    above KERNEL_MAX_BW (K3's wide route holds 16 band lanes in each of a
+    block's at most 1024 threads), or T < 1."""
     if BW % 16 or not 16 <= BW <= KERNEL_MAX_BW or T < 1:
         raise ValueError(
-            f"the band kernels take BW a multiple of 16 from 16 to {KERNEL_MAX_BW} and "
-            f"T >= 1, got BW={BW}, T={T}"
+            f"the band kernels take BW a multiple of 16 from 16 to {KERNEL_MAX_BW} (a "
+            f"block's 1024 threads of 16 band lanes) and T >= 1, got BW={BW}, T={T}"
         )
+
+
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def launch_plan(T: int, BW: int) -> tuple[tuple[str, int], tuple[str, int]]:
+    """K3's and K4's routes for [T, BW], each (route, fragments a block).
+    K3: ("band_forward", 8 up to BW 256, else 4) while BW <= STRIP_MAX_BW and
+    a block's fragments (round16(T + BW + 1) + round16(T) bytes each) fit
+    its shared memory (at BW 256, T <= 14,399), else ("band_forward_wide",
+    1).  K4: ("mask_walk_votes", 16) while BW <= STRIP_MAX_BW and 16 times
+    2 * 32 * BW / 4 + round16(T + BW + 1) bytes fit beside its best-row
+    tables (at BW 256, T <= 10,143; at 512, T <= 5,791), else
+    ("mask_walk_votes_direct", 4).  Raises as check_kernel_shape."""
+    check_kernel_shape(T, BW)
+    fwd, walk = ("band_forward_wide", 1), ("mask_walk_votes_direct", 4)
+    if BW <= STRIP_MAX_BW:
+        n = 8 if BW <= 256 else 4
+        if n * (_round16(T + BW + 1) + _round16(T)) <= SMEM_BYTES:
+            fwd = ("band_forward", n)
+        walk_bytes = 2 * 32 * (BW // 4) + _round16(T + BW + 1)
+        if 16 * walk_bytes + WALK_STATIC_BYTES <= SMEM_BYTES:
+            walk = ("mask_walk_votes", 16)
+    return fwd, walk
 
 
 _FNS = None
 
 
 def _fns():
-    """The launchers' C functions, typed once per process."""
+    """The library and its launchers by route, typed once per process."""
     global _FNS
     if _FNS is None:
         from raven_tpu_torch import csrc
@@ -212,14 +248,18 @@ def _fns():
         fwd = lib.raven_band_forward_launch
         fwd.restype = ctypes.c_int
         fwd.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ]
         walk = lib.raven_band_walk_launch
         walk.restype = ctypes.c_int
-        walk.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        _FNS = lib, fwd, walk
+        walk.argtypes = fwd.argtypes
+        fns = {"band_forward": fwd, "mask_walk_votes": walk}
+        for route, name in (("band_forward_wide", "raven_band_forward_wide_launch"),
+                            ("mask_walk_votes_direct", "raven_band_walk_direct_launch")):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = ctypes.c_int, fwd.argtypes
+            fns[route] = fn
+        _FNS = lib, fns
     return _FNS
 
 
@@ -228,7 +268,7 @@ def _forward_kernel(cw, t_lens, fw_sh, q_lens, r0, T: int, BW: int):
 
     B = cw.shape[0]
     i32 = torch.int32
-    check_kernel_shape(T, BW)
+    (route, per_block), _ = launch_plan(T, BW)
     _check((
         ("cw", cw, i32, (B, T)), ("t_lens", t_lens, i32, (B,)),
         ("fw_sh", fw_sh, torch.uint8, (B, T + BW + 1)), ("q_lens", q_lens, i32, (B,)),
@@ -240,17 +280,18 @@ def _forward_kernel(cw, t_lens, fw_sh, q_lens, r0, T: int, BW: int):
     row0 = torch.empty(B, dtype=i32, device=dev)
     if B == 0:
         return moves, ends, row0
-    lib, fwd, _ = _fns()
+    lib, fns = _fns()
     # the tensors' card is current for the launch and its shared-memory
     # limit, and the launch goes on that card's stream
     with torch.cuda.device(dev):
-        err = fwd(
+        err = fns[route](
             cw.data_ptr(), t_lens.data_ptr(), fw_sh.data_ptr(), q_lens.data_ptr(),
             r0.data_ptr(), moves.data_ptr(), ends.data_ptr(), row0.data_ptr(), B, T, BW,
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream, per_block,
         )
     csrc.check(lib, err, "banded forward kernel launch")
     LAUNCHES["band_forward"] += 1
+    ROUTE_LAUNCHES[route] += 1
     return moves, ends, row0
 
 
@@ -259,7 +300,7 @@ def _walk_kernel(moves, end_scores, row0_score, fw_sh, q_lens, r0, T: int, BW: i
 
     B = q_lens.shape[0]
     i32 = torch.int32
-    check_kernel_shape(T, BW)
+    _, (route, per_block) = launch_plan(T, BW)
     _check((
         ("moves", moves, i32, (T, B, BW // 16)), ("end_scores", end_scores, i32, (T, B)),
         ("row0_score", row0_score, i32, (B,)),
@@ -271,15 +312,16 @@ def _walk_kernel(moves, end_scores, row0_score, fw_sh, q_lens, r0, T: int, BW: i
     ins = torch.empty((B, T + 1), dtype=i32, device=dev)
     if B == 0:
         return votes, ins
-    lib, _, walk = _fns()
+    lib, fns = _fns()
     with torch.cuda.device(dev):
-        err = walk(
+        err = fns[route](
             moves.data_ptr(), end_scores.data_ptr(), row0_score.data_ptr(), fw_sh.data_ptr(),
             q_lens.data_ptr(), r0.data_ptr(), votes.data_ptr(), ins.data_ptr(), B, T, BW,
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream, per_block,
         )
     csrc.check(lib, err, "band walk kernel launch")
     LAUNCHES["mask_walk_votes"] += 1
+    ROUTE_LAUNCHES[route] += 1
     return votes, ins
 
 

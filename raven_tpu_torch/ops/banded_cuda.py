@@ -15,7 +15,10 @@ are bit-identical to raven_tpu's.
 
 `fused_votes_banded` is the drop-in for raven_tpu's
 fused_votes_banded_kernel.  `LAUNCHES` counts kernel launches per kernel,
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels, and
+`ROUTE_LAUNCHES` per route: K9 holds a block's packed fragments in shared
+memory ("nw_moves_banded") while they fit, and in device memory past that
+("nw_moves_banded_global"), as `launch_plan` picks from the shape.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import ctypes
 
 import torch
 
+from raven_tpu_torch.csrc import SMEM_BYTES
 from raven_tpu_torch.ops.consensus_cuda import votes_from_primitives
 
 NEG = -(1 << 20)
@@ -31,8 +35,9 @@ MATCH, MISMATCH, GAP = 3, -5, -4
 # the band widths the kernels take, raven_tpu's min(256, pow2(q_pad)): K9
 # holds 16 band lanes a lane, 16 lanes a fragment at 256 and 8 at 128
 KERNEL_BWS = (128, 256)
-KERNEL_MAX_Q = 8192  # the longest padded fragment the kernels' shared memory holds
+FWD_FRAGS = {128: 16, 256: 8}  # K9's fragments a block
 LAUNCHES = {"nw_moves_banded": 0, "traceback_banded": 0}
+ROUTE_LAUNCHES = {"nw_moves_banded": 0, "nw_moves_banded_global": 0, "traceback_banded": 0}
 
 
 def _band_offsets(t_lens, q_lens, r0, r1, T: int, Q: int, BW: int):
@@ -104,8 +109,9 @@ def nw_moves_banded_plain(cw, t_lens, frags, q_lens, r0, r1, T: int, Q: int, BW:
     ii = torch.arange(BW + 1, device=dev)[None, :]
     for r in range(Te):
         off = off_all[r + 1]
-        # the previous row at lanes d - 1 .. d + BW - 1: diag, then up
-        g = prevp.gather(1, ((off - off_prev)[:, None] + ii).clamp_(max=BW + 1))
+        # the previous row at lanes d - 1 .. d + BW - 1: diag, then up (NEG
+        # outside it; d < 0 where raven_tpu's int32 band start wraps)
+        g = prevp.gather(1, ((off - off_prev)[:, None] + ii).clamp_(0, BW + 1))
         up = g[:, 1:] + GAP
         diag = g[:, :BW]
         j = off[:, None] + i
@@ -187,6 +193,12 @@ def traceback_banded_plain(moves, offs, end_scores, row0_score, q_lens, frags, w
         hist_mv[s] = mv
         t = t - (mv <= 1).to(i64)
         j = j - ((mv & 1) ^ 1)  # diag and left move a column, up and 3 do not
+        # a move 3 keeps its walk's state, so once every walk has one each
+        # later step repeats it: stop there (steps is the longest possible)
+        if s % 256 == 255 and bool((mv == 3).all()):
+            steps = s + 1
+            break
+    hist_t, hist_j, hist_mv = hist_t[:steps], hist_j[:steps], hist_mv[:steps]
 
     # one gather serves base and weight, packed as raven_tpu packs them
     pk = (frags.clamp(0, 3) | (wts << 2)).to(i64)
@@ -237,14 +249,35 @@ def _check(named, device):
 
 def check_kernel_shape(T: int, Q: int, BW: int):
     """Raise ValueError on a shape the card kernels do not take: BW other
-    than 128 or 256, Q outside 1 .. KERNEL_MAX_Q (K9 holds a fragment's
-    codes in shared memory), or T < 1.  A band wider than the fragment (Q +
-    1 < BW) is taken, as raven_tpu takes it."""
-    if BW not in KERNEL_BWS or not 1 <= Q <= KERNEL_MAX_Q or T < 1:
+    than 128 or 256 (raven_tpu's min(256, pow2(q_pad)) gives no other), Q
+    < 1 or T < 1.  Any Q and T above that are taken (`launch_plan`); a band
+    wider than the fragment (Q + 1 < BW) too, as raven_tpu takes it."""
+    if BW not in KERNEL_BWS or Q < 1 or T < 1:
         raise ValueError(
-            f"the anchored banded kernels take BW in {KERNEL_BWS}, 1 <= Q <= "
-            f"{KERNEL_MAX_Q} and T >= 1, got T={T}, Q={Q}, BW={BW}"
+            f"the anchored banded kernels take BW in {KERNEL_BWS}, Q >= 1 and T >= 1, "
+            f"got T={T}, Q={Q}, BW={BW}"
         )
+
+
+def code_words(Q: int, BW: int) -> int:
+    """K9's packed words a fragment (banded.cu's code_words): 16 columns a
+    word, one more for the funnel shift, at least the band's."""
+    return max(Q // 16 + 2, BW // 16 + 1)
+
+
+def launch_plan(T: int, Q: int, BW: int) -> tuple[str, int]:
+    """K9's route for [T, Q, BW] and its fragments a block:
+    ("nw_moves_banded", FWD_FRAGS[BW]) while a block's packed fragments and
+    regather rows fit its shared memory (at BW 256, Q <= 55,887), else
+    ("nw_moves_banded_global", the same): the packed codes in device
+    memory.  T does not enter (K9 keeps no row in shared memory); K10 has
+    one route at every shape.  Raises as check_kernel_shape."""
+    check_kernel_shape(T, Q, BW)
+    n = FWD_FRAGS[BW]
+    row = (BW + BW // 16 + 1 + 3) & ~3
+    codes = (2 * code_words(Q, BW) + 3) & ~3
+    fits = n * (codes + row) * 4 <= SMEM_BYTES
+    return ("nw_moves_banded" if fits else "nw_moves_banded_global"), n
 
 
 _FNS = None
@@ -261,13 +294,20 @@ def _fns():
         fwd.restype = ctypes.c_int
         fwd.argtypes = [ctypes.c_void_p] * 10 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int,
         ]
         walk = lib.raven_traceback_banded_launch
         walk.restype = ctypes.c_int
         walk.argtypes = [ctypes.c_void_p] * 11 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
-        _FNS = lib, fwd, walk
+        fwd_global = lib.raven_nw_moves_banded_global_launch
+        fwd_global.restype = ctypes.c_int
+        fwd_global.argtypes = [ctypes.c_void_p] * 11 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int,
+        ]
+        _FNS = lib, fwd, walk, fwd_global
     return _FNS
 
 
@@ -276,7 +316,7 @@ def _forward_kernel(cw, t_lens, frags, q_lens, r0, r1, T: int, Q: int, BW: int):
 
     B = cw.shape[0]
     i32 = torch.int32
-    check_kernel_shape(T, Q, BW)
+    route, per_block = launch_plan(T, Q, BW)
     _check((
         ("cw", cw, i32, (B, T)), ("t_lens", t_lens, i32, (B,)),
         ("frags", frags, i32, (B, Q)), ("q_lens", q_lens, i32, (B,)),
@@ -289,18 +329,18 @@ def _forward_kernel(cw, t_lens, frags, q_lens, r0, r1, T: int, Q: int, BW: int):
     row0 = torch.empty(B, dtype=i32, device=dev)
     if B == 0:
         return moves, offs, ends, row0
-    lib, fwd, _ = _fns()
+    lib, fwd, _, fwd_global = _fns()
+    ptrs = [x.data_ptr() for x in (cw, t_lens, frags, q_lens, r0, r1, moves, offs, ends, row0)]
+    if route == "nw_moves_banded_global":  # the packed codes' scratch
+        codes = torch.empty(B * 2 * code_words(Q, BW), dtype=i32, device=dev)
+        fwd, ptrs = fwd_global, [*ptrs, codes.data_ptr()]
     # the tensors' card is current for the launch and its shared-memory
     # limit, and the launch goes on that card's stream
     with torch.cuda.device(dev):
-        err = fwd(
-            cw.data_ptr(), t_lens.data_ptr(), frags.data_ptr(), q_lens.data_ptr(),
-            r0.data_ptr(), r1.data_ptr(), moves.data_ptr(), offs.data_ptr(),
-            ends.data_ptr(), row0.data_ptr(), B, T, Q, BW,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        err = fwd(*ptrs, B, T, Q, BW, torch.cuda.current_stream(dev).cuda_stream, per_block)
     csrc.check(lib, err, "anchored banded forward kernel launch")
     LAUNCHES["nw_moves_banded"] += 1
+    ROUTE_LAUNCHES[route] += 1
     return moves, offs, ends, row0
 
 
@@ -324,7 +364,7 @@ def _walk_kernel(moves, offs, end_scores, row0_score, q_lens, frags, wts,
     ins_w = torch.empty((B, T + 1), dtype=i32, device=dev)
     if B == 0:
         return col_sym, col_w, ins_b, ins_w
-    lib, _, walk = _fns()
+    lib, _, walk, _ = _fns()
     with torch.cuda.device(dev):
         err = walk(
             moves.data_ptr(), offs.data_ptr(), end_scores.data_ptr(), row0_score.data_ptr(),
@@ -334,6 +374,7 @@ def _walk_kernel(moves, offs, end_scores, row0_score, q_lens, frags, wts,
         )
     csrc.check(lib, err, "anchored banded walk kernel launch")
     LAUNCHES["traceback_banded"] += 1
+    ROUTE_LAUNCHES["traceback_banded"] += 1
     return col_sym, col_w, ins_b, ins_w
 
 

@@ -16,7 +16,10 @@ per-window tables) and `fused_votes` the drop-in for
 raven_tpu.ops.consensus_device.fused_votes_kernel(band=0).
 
 `LAUNCHES` counts kernel launches, so a run can show that its main path
-went through the kernel.
+went through the kernel, and `ROUTE_LAUNCHES` counts them per route:
+`launch_plan` picks, from the shape, the 16-bit pair route
+("votes_primitives", two fragments a warp) or the int32 route
+("votes_primitives_i32", one a warp) past its limits.
 """
 
 from __future__ import annotations
@@ -25,9 +28,20 @@ import ctypes
 
 import torch
 
+from raven_tpu_torch.csrc import SMEM_BYTES
+
 MATCH, MISMATCH, GAP = 3, -5, -4
 NEG = -(1 << 20)
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"votes_primitives": 0, "votes_primitives_i32": 0}
+PAIR_MAX_Q = 1024  # the pair route's column tiles: four of 256
+PAIR_BIAS = 0xC000  # the pair route's values D - 3r + 0xC000 lie in 16 bits
+# the widest fragment the card takes: from Q * |GAP| = 2^20 on, an end
+# value (D >= Q * GAP) can reach NEG, which the best-row choice reads as "no
+# end value yet", and raven_tpu's two K2 versions (its Pallas kernel and
+# XLA scan) part there
+NEG_MAX_Q = -NEG // -GAP - 1
+BOX_WORDS = 64 * 8  # the pair route's traceback box
 
 
 def votes_primitives_plain(cw, tlens, frags, qlens, wts):
@@ -165,11 +179,38 @@ def _check(cw, tlens, frags, qlens, wts):
             raise ValueError(f"{name} must be contiguous")
 
 
+def launch_plan(T: int, Q: int) -> tuple[str, int]:
+    """K2's route for [T, Q] and its fragments a block: ("votes_primitives",
+    2), the 16-bit pair route, while Q <= PAIR_MAX_Q, 4Q + 3T + 8 <=
+    0xC000 and a warp's shared memory (max(2T + 97, 2 boxes) + 2Q + 4T + 2
+    words; at Q 768, T <= 9,412) fits a block's; else
+    ("votes_primitives_i32", 1), which keeps nothing of T or Q in shared
+    memory.  Raises ValueError below T, Q = 1 and past Q = NEG_MAX_Q."""
+    if T < 1 or Q < 1:
+        raise ValueError(f"K2 takes T >= 1 and Q >= 1, got T={T}, Q={Q}")
+    if Q > NEG_MAX_Q:
+        raise ValueError(
+            f"K2 takes Q up to {NEG_MAX_Q} on the card, got Q={Q}: from Q * |GAP| = 2^20 "
+            f"on, an end value can reach raven_tpu's sentinel NEG = {NEG}, where its "
+            f"best-row choice no longer follows the scores")
+    words = max(2 * T + 97, 2 * BOX_WORDS) + 2 * Q + 4 * T + 2
+    if Q <= PAIR_MAX_Q and 4 * Q + 3 * T + 8 <= PAIR_BIAS and 4 * words <= SMEM_BYTES:
+        return "votes_primitives", 2
+    return "votes_primitives_i32", 1
+
+
+def i32_moves_words(B: int, T: int, Q: int) -> int:
+    """The int32 route's move scratch in 32-bit words: a 16-bit word a
+    lane and step, T + 31 steps a tile of 256 columns
+    (consensus.cu's votes_primitives_i32_kernel)."""
+    return B * -(-Q // 256) * (T + 31) * 16
+
+
 _FNS = None
 
 
 def _fns():
-    """The launcher's two C functions, typed once per process."""
+    """The launcher's C functions, typed once per process."""
     global _FNS
     if _FNS is None:
         from raven_tpu_torch import csrc
@@ -181,9 +222,14 @@ def _fns():
         fn = lib.raven_votes_primitives_launch
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 10 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ]
-        _FNS = lib, words, fn
+        fn_i32 = lib.raven_votes_primitives_i32_launch
+        fn_i32.restype = ctypes.c_int
+        fn_i32.argtypes = [ctypes.c_void_p] * 11 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ]
+        _FNS = lib, words, fn, fn_i32
     return _FNS
 
 
@@ -194,6 +240,7 @@ def _kernel(cw, tlens, frags, qlens, wts):
     _check(cw, tlens, frags, qlens, wts)
     B, T = cw.shape
     Q = frags.shape[1]
+    route, per_block = launch_plan(T, Q)
     dev = cw.device
     col_sym = torch.empty((B, T), dtype=torch.int32, device=dev)
     col_w = torch.empty((B, T), dtype=torch.int32, device=dev)
@@ -201,25 +248,23 @@ def _kernel(cw, tlens, frags, qlens, wts):
     ins_w = torch.empty((B, T + 1), dtype=torch.int32, device=dev)
     if B == 0:
         return col_sym, col_w, ins_b, ins_w
-    lib, words, fn = _fns()
-    n_words = words(B, T, Q)
-    if n_words <= 0:
-        raise ValueError(
-            f"K2 does not take T={T}, Q={Q} (needs 1 <= Q <= 1024, T >= 1 "
-            "and 4Q + 3T + 8 <= 49152)"
-        )
-    moves = torch.empty(n_words, dtype=torch.int32, device=dev)
+    lib, words, fn, fn_i32 = _fns()
+    outs = [x.data_ptr() for x in (col_sym, col_w, ins_b, ins_w)]
+    ins = [x.data_ptr() for x in (cw, tlens, frags, qlens, wts)]
+    if route == "votes_primitives":
+        moves = torch.empty(words(B, T, Q), dtype=torch.int32, device=dev)
+        ptrs = [*ins, moves.data_ptr(), *outs]
+    else:  # the moves' and the row ends' scratch
+        moves = torch.empty(i32_moves_words(B, T, Q), dtype=torch.int32, device=dev)
+        bnd = torch.empty(B * (T + 1), dtype=torch.int32, device=dev)
+        fn, ptrs = fn_i32, [*ins, moves.data_ptr(), bnd.data_ptr(), *outs]
     # the tensors' card is current for the launch and its shared-memory
     # limit, and the launch goes on that card's stream
     with torch.cuda.device(dev):
-        err = fn(
-            cw.data_ptr(), tlens.data_ptr(), frags.data_ptr(), qlens.data_ptr(),
-            wts.data_ptr(), moves.data_ptr(), col_sym.data_ptr(), col_w.data_ptr(),
-            ins_b.data_ptr(), ins_w.data_ptr(), B, T, Q,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        err = fn(*ptrs, B, T, Q, torch.cuda.current_stream(dev).cuda_stream, per_block)
     csrc.check(lib, err, "window consensus kernel launch")
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
     return col_sym, col_w, ins_b, ins_w
 
 

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from raven_tpu_torch.device import resolve_device
-from raven_tpu_torch.ops.banded_cuda import check_kernel_shape, fused_votes_banded
+from raven_tpu_torch.ops.banded_cuda import fused_votes_banded
 from raven_tpu_torch.ops.consensus_cuda import fused_votes
 from raven_tpu_torch.parallel.mesh import local_blocks, sum_on_first
 
@@ -70,13 +70,6 @@ def device_window_consensus(
     home = mesh.first if mesh is not None else devices[0]
     # the anchored band's width (lane-aligned)
     BW = min(256, _pow2_of(q_pad))
-    if banded and any(d.type == "cuda" for d in devices):
-        try:
-            check_kernel_shape(t_pad, q_pad, BW)
-        except ValueError as e:
-            raise NotImplementedError(
-                f"q_pad={q_pad} gives a band of {BW}: {e}"
-            ) from None
     n_win = len(windows)
     cons = [np.asarray(w[0], np.uint8) for w in windows]
     frags_arr, w_arr, q_lens, win_of_arr, span0, span1, B_total = flatten_fragments(

@@ -137,15 +137,18 @@ def overlap_digest(results) -> tuple[str, int]:
     return h.hexdigest(), n
 
 
-def make_windows(n_windows: int, window: int, coverage: int, rng):
+def make_windows(n_windows: int, window: int, coverage: int, rng, truths=None):
     """bench_polish.py::make_windows: windows of `window` random truth
     bases, each with a backbone and `coverage` fragments drawn from the
     truth with 6% deletions, 4% substitutions and 5% insertions, weights
-    11.  Returns ([(backbone, fragments, weights)], total truth bases)."""
+    11.  Returns ([(backbone, fragments, weights)], total truth bases);
+    each window's truth is appended to `truths` when it is a list."""
     windows = []
     total_bases = 0
     for _ in range(n_windows):
         truth = rng.integers(0, 4, window).astype(np.uint8)
+        if truths is not None:
+            truths.append(truth)
 
         def mutate():
             keep = rng.random(window) >= 0.06  # deletions

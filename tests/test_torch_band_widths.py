@@ -6,7 +6,8 @@ and walk (K9/K10's plain versions), the vote tables and
 device_window_consensus(banded=True) at q_pad = 100, 128 and 200 (bands of
 128, 128 and 256, two of them wider than the fragment), all integer
 outputs bit for bit; and the card kernels' shape checks, which take these
-widths and still refuse bw = 520 and q_pad = 8200.  The CUDA kernels
+widths, bw = 528 and q_pad = 8200, and still refuse bw = 520 and every
+other width that is not raven_tpu's.  The CUDA kernels
 themselves are held against their plain versions at these widths on the
 card by chip_smoke.py's phase 13."""
 
@@ -200,24 +201,25 @@ def test_banded_window_consensus_matches_jax_at_q_pad(q_pad):
 
 def test_kernel_shape_checks_take_raven_tpus_widths():
     """The checks the wrappers run before a launch: K3/K4 take every
-    multiple of 16 from 16 to 512 and refuse other widths and bw = 520;
-    K9/K10 take raven_tpu's bands for q_pad 100, 128 and 200 and refuse
-    q_pad = 8200 and other widths."""
-    for bw in range(16, 513, 16):
+    multiple of 16 from 16 to 512 and past it (528: the wide and direct
+    routes) and refuse other widths and bw = 520; K9/K10 take raven_tpu's
+    bands for q_pad 100, 128 and 200 and q_pad = 8200 (the cap of 8192 is
+    gone) and refuse other widths."""
+    for bw in (*range(16, 513, 16), 528):
         band_cuda.check_kernel_shape(640, bw)
-    for t, bw in ((640, 520), (640, 528), (640, 8), (640, 0), (640, 264), (0, 256)):
+    for t, bw in ((640, 520), (640, 8), (640, 0), (640, 264), (0, 256)):
         with pytest.raises(ValueError, match="multiple of 16"):
             band_cuda.check_kernel_shape(t, bw)
-    for q_pad in (*Q_PADS, 768, 8192):
+    for q_pad in (*Q_PADS, 768, 8192, 8200):
         tbc.check_kernel_shape(640, q_pad, min(256, tcd._pow2_of(q_pad)))
-    for t, q, bw in ((640, 8200, 256), (640, 768, 512), (640, 100, 64), (640, 0, 128)):
+    for t, q, bw in ((640, 768, 512), (640, 100, 64), (640, 0, 128)):
         with pytest.raises(ValueError, match="BW in"):
             tbc.check_kernel_shape(t, q, bw)
     # a launch is refused before it reaches the card: the CPU tensors never
     # get there, so the check is the kernel path's own
     cw, tl, fr, ql, r0, r1, _ = _t(*_banded_case("default spans", 8, 8200, B=2))
     with pytest.raises(ValueError, match="BW in"):
-        tbc._forward_kernel(cw, tl, fr, ql, r0, r1, 8, 8200, 256)
+        tbc._forward_kernel(cw, tl, fr, ql, r0, r1, 8, 8200, 512)
     x = torch.zeros((2, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="multiple of 16"):
         band_cuda._forward_kernel(x, x[:, 0].contiguous(), torch.zeros((2, 8 + 520 + 1), dtype=torch.uint8),

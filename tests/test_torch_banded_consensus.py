@@ -364,11 +364,13 @@ def test_wrappers_take_plain_only_on_cpu():
         tbc._forward_kernel(*args[:2], args[2][:, :-1].contiguous(), *args[3:], T, Q, BW)
     with pytest.raises(ValueError, match="contiguous"):
         tbc._walk_kernel(*walk_args[:6], _t(wt.T).T, T, Q, BW)
-    for t_, q_, bw_ in ((T, Q, 192), (T, 8200, 256), (T, 0, 128), (0, Q, 256)):
+    for t_, q_, bw_ in ((T, Q, 192), (T, 0, 128), (0, Q, 256)):
         with pytest.raises(ValueError, match="BW in"):
             tbc.check_kernel_shape(t_, q_, bw_)
-    # raven_tpu's widths, the band past the fragment included
-    for t_, q_, bw_ in ((640, 768, 256), (T, Q, 128), (T, 200, 256), (T, 100, 128)):
+    # raven_tpu's widths, the band past the fragment and fragments past
+    # 8192 included
+    for t_, q_, bw_ in ((640, 768, 256), (T, Q, 128), (T, 200, 256), (T, 100, 128),
+                        (T, 8200, 256)):
         tbc.check_kernel_shape(t_, q_, bw_)
     with pytest.raises(ValueError, match="device"):
         tbc.nw_moves_banded(*(a.to("meta") for a in args), T, Q, BW)

@@ -215,8 +215,22 @@ def test_repeat_genome_checkpoint_assembles_the_same(repeat_checkpoint, monkeypa
     record_property("unitig_lengths", [len(s) for _, s in got])
 
 
-def test_repeat_genome_n_body_runs_reproducibly(repeat_checkpoint, monkeypatch,
-                                                record_property):
+@pytest.fixture(scope="module")
+def repeat_n_body(repeat_checkpoint):
+    """The repeat checkpoint through both packages' assemble with the
+    components of 512 nodes or more on their float32 n-body, the port's
+    twice: _assemble_both's results and the port's n-body runs, once for
+    the tests that read them."""
+    mp = pytest.MonkeyPatch()
+    try:
+        runs = tlayout.DEVICE_RUNS
+        out = _assemble_both(repeat_checkpoint, mp, port_runs=2)
+        return out, tlayout.DEVICE_RUNS - runs
+    finally:
+        mp.undo()
+
+
+def test_repeat_genome_n_body_runs_reproducibly(repeat_n_body, record_property):
     """The same checkpoint with the components of 512 nodes or more on
     both packages' float32 n-body: both lay out the same components from
     the same start points in the first round, the port's n-body holds
@@ -228,11 +242,8 @@ def test_repeat_genome_n_body_runs_reproducibly(repeat_checkpoint, monkeypatch,
     loop on this genome.  The rounds and edges that differ, and both
     unitig lengths, are recorded as properties of this test."""
     j_n_body, t_n_body = jlayout._layout_component, tlayout._layout_component
-    runs = tlayout.DEVICE_RUNS
-    want, got, want_calls, got_calls, want_inputs, got_inputs = _assemble_both(
-        repeat_checkpoint, monkeypatch, port_runs=2
-    )
-    assert tlayout.DEVICE_RUNS - runs >= 2
+    (want, got, want_calls, got_calls, want_inputs, got_inputs), n_body_runs = repeat_n_body
+    assert n_body_runs >= 2
     assert got[0] == got[1]
     assert len(got_calls) == 2 * len(want_calls)
     first = [[x[1:] for x in inputs if x[0] == 0] for inputs in (want_inputs, got_inputs)]
@@ -248,3 +259,17 @@ def test_repeat_genome_n_body_runs_reproducibly(repeat_checkpoint, monkeypatch,
     record_property("long_edge_calls_differ", differ)
     record_property("unitig_lengths", {"raven_tpu": [len(s) for _, s in want],
                                        "port": [len(s) for _, s in got[0]]})
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "the float32 n-body is chaotic over 100 iterations, and the two packages "
+    "sum in another order: their long-edge calls, and so their unitigs, part "
+    "on this genome (ROADMAP Queue 3 item 3)"))
+def test_repeat_genome_n_body_unitigs_match_jax(repeat_n_body):
+    """The gap that test_repeat_genome_n_body_runs_reproducibly records,
+    kept visible: through the n-body, the port's unitigs on the repeat
+    checkpoint are raven_tpu's.  Expected to fail until the n-body's
+    summation order is raven_tpu's (or the repeat cell is held to other
+    contigs); a pass fails the run, so the day they agree is seen."""
+    (want, got, *_), _ = repeat_n_body
+    assert got[0] == want
