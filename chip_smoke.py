@@ -164,10 +164,19 @@ failure:
      (T = 160), at BW 256 with T = 16,384 and at BW 1024 with T = 8,192 (the
      wide and direct routes), K9/K10 at q_pad 8208, 16384 and 65536 on bank
      rows, cut fragments, steep spans and all-mismatch rows in one batch
-     each (65536 on K9's global route) and at T = 16,384, q_pad 768; the
+     each (65536 on K9's global route) and at T = 16,384, q_pad 768; past
+     the last refusals: K2's int32 route at [8, 64, 262400] (fragments
+     whose end values all fall below NEG) under both start-row rules, each
+     bit-equal to the plain version under the same rule and the two
+     different, K3's global route and K4's direct walk at BW 16,400 and
+     32,768 (T = 160), K10 on 8 of K9_LONG's fragments whose band starts
+     wrap, as K9 left them and started inside the wrapped stretch; the
      three engines through their entry points on 16 windows, the card's
      consensus the CPU's byte for byte: device_window_consensus at q_pad
-     2048, banded at q_pad 16384 and 65536, band_window_consensus at bw 768;
+     2048, banded at q_pad 16384 and 65536, band_window_consensus at bw 768,
+     and device_window_consensus on 4 windows two of which hold a fragment
+     of 262,400 bases (q_pad 262,400) and band_window_consensus at bw 16,400
+     on 2 windows;
      and one call of each engine on a bank of 512 windows of 2,000 bases x
      30 fragments at t_pad 2048 (full NW and banded at q_pad 2560,
      shift-banded at bw 768): the walls, the routes launched, the consensus
@@ -176,8 +185,9 @@ failure:
      old limit may launch before this phase (the CLI paths take the first
      routes);
  14. a `kernels` JSON line (K3, K4, K9 and K10 with the widths they ran
-     at; the routes past the old limits as kernels of their own, their
-     launches phase 13(d)'s engine calls'), the card's name and power limit,
+     at; the routes past the old limits, K3's global one among them, as
+     kernels of their own, their launches phase 13(d)'s engine calls'), the
+     card's name and power limit,
      and the last line {"ok": true, "device": {...}}.
 """
 
@@ -2156,6 +2166,17 @@ PAST_BANDED_Q_PADS = (8208, 16384, 65536)
 # before their 5% deletions (q_len past 55,887) on consensus rows of 62,000
 # .. 64,000
 K9_LONG, K9_LONG_BASES = (256, 64000, 65536, 7), (59500, 61500)
+# past the last refusals: K2's int32 route past Q 262,143, where every end
+# value can fall below NEG and raven_tpu's two start-row rules part ([B, T,
+# Q]; a fragment's end values stay above NEG while 4 q_len - 7 tlen <= 2^20,
+# its matches making up for part of its gaps); K3's global route and K4's
+# direct walk past BW 16,384 (T 160); K10 on up to K10_WRAPPED of K9_LONG's
+# fragments whose band starts wrap; the full-NW engine on windows of which
+# two hold a fragment of NEG_Q bases
+PAST_K2_NEG = (8, 64, 262400)
+PAST_BAND_GLOBAL = (16400, 32768)
+K10_WRAPPED = 8
+NEG_Q = 262400
 # the full batch: a bank of 512 windows of 2,000 bases x 30 fragments
 FULL_WINDOWS, FULL_WINDOW, FULL_COVERAGE = 512, 2000, 30
 FULL_T, FULL_Q, FULL_BW = 2048, 2560, 768
@@ -2164,12 +2185,13 @@ ROUTE_KERNELS = {
     "votes_primitives": "votes_primitives_kernel",
     "votes_primitives_i32": "votes_primitives_i32_kernel",
     "band_forward": "band_forward_kernel", "band_forward_wide": "band_forward_wide_kernel",
+    "band_forward_global": "band_forward_global_kernel",
     "mask_walk_votes": "band_walk_kernel", "mask_walk_votes_direct": "band_walk_direct_kernel",
     "nw_moves_banded": "nw_moves_banded_kernel", "nw_moves_banded_global": "nw_moves_banded_kernel",
     "traceback_banded": "traceback_banded_kernel",
 }
-NEW_ROUTES = ("votes_primitives_i32", "band_forward_wide", "mask_walk_votes_direct",
-              "nw_moves_banded_global")
+NEW_ROUTES = ("votes_primitives_i32", "band_forward_wide", "band_forward_global",
+              "mask_walk_votes_direct", "nw_moves_banded_global")
 
 
 def route_counts() -> dict:
@@ -2200,6 +2222,48 @@ def k2_long_rows(B: int, T: int, Q: int, seed: int):
         ql[b] = n
     wt = np.where(fr >= 0, rng.integers(1, 256, fr.shape), 0)
     return cw.astype(np.int32), tl, fr, ql, wt.astype(np.int32)
+
+
+def k2_neg_rows(B: int, T: int, Q: int, seed: int, longest: int = 0):
+    """[B, T] / [B, Q] int32 K2 inputs past Q 262,143: fragments of Q, Q -
+    40, 262,144, 262,100 and 200,000 bases cycling through consensus rows of
+    L = `longest` (T when 0) or L - 8 bases with 5% substitutions, one
+    fragment without bases and one without a consensus, weights 1-255.
+    Where q_len * |GAP| > 2^20 every end value is below NEG: the argmax
+    rule's walk starts one below the best row, or on the inactive row tlen
+    (casting nothing; with L < T on a consensus of L bases that row lies
+    past every row the plain forward computes), the Pallas rule's on row
+    1."""
+    rng = np.random.default_rng(seed)
+    L = longest or T
+    qls = (Q, Q, Q - 40, 262144, 262100, 200000, 0, Q)
+    tls = (L, L - 8, L, L - 8, L, L - 8, L, 0)
+    tl = np.array([tls[b % 8] for b in range(B)], np.int32)
+    cw = np.where(np.arange(T)[None] < tl[:, None], rng.integers(0, 4, (B, T)), -1)
+    fr = np.full((B, Q), -1, np.int32)
+    ql = np.array([qls[b % 8] for b in range(B)], np.int32)
+    for b in range(B):
+        n = int(ql[b])
+        src = np.resize(cw[b, : tl[b]], n) if tl[b] else rng.integers(0, 4, n)
+        fr[b, :n] = np.where(rng.random(n) < 0.05, (src + 1) % 4, src)
+    wt = np.where(fr >= 0, rng.integers(1, 256, fr.shape), 0)
+    return cw.astype(np.int32), tl, fr, ql, wt.astype(np.int32)
+
+
+def neg_windows(n: int, window: int, coverage: int, seed: int):
+    """make_windows' windows, with the first fragment of windows 0 and 2
+    replaced by one of NEG_Q bases cycling through its backbone (5%
+    substitutions, weight 11)."""
+    from raven_tpu_torch.utils.synth import make_windows
+
+    rng = np.random.default_rng(seed)
+    windows, _ = make_windows(n, window, coverage, rng)
+    for w in (0, 2):
+        bb, frags, wts = windows[w]
+        src = np.resize(bb, NEG_Q)
+        frags[0] = np.where(rng.random(NEG_Q) < 0.05, (src + 1) % 4, src).astype(np.uint8)
+        wts[0] = np.full(NEG_Q, 11, np.uint8)
+    return windows
 
 
 def banded_long_rows(B: int, T: int, Q: int, seed: int, n_min: int = 0, n_max: int = 0):
@@ -2324,6 +2388,147 @@ def check_votes(device, arrays, name: str):
     return {"case": name, "shape": [B, T, Q], "route": route, "max_abs_err": err}
 
 
+def past_neg_votes(device) -> dict:
+    """K2's int32 route at PAST_K2_NEG (k2_neg_rows) under both start-row
+    rules, each bit-equal to votes_primitives_plain under the same rule:
+    with the longest consensus T bases, and with every consensus shorter
+    than T (the argmax rule's walk then starts a fragment on the row one
+    past every computed row); the two rules' outputs must differ (each
+    case reaches NEG).  The argmax rule's kernel, the engine's, timed
+    beside its bound on the first case."""
+    import torch
+
+    from raven_tpu_torch.ops import consensus_cuda as cc
+
+    B, T, Q = PAST_K2_NEG
+    route = cc.launch_plan(T, Q)[0]
+    errs, plain_ms = [], 0.0
+    inputs = {L: [torch.from_numpy(x).to(device) for x in k2_neg_rows(B, T, Q, 13, L)]
+              for L in (T, T - 4)}
+    for longest, a in inputs.items():
+        outs = {}
+        for argmax in (False, True):
+            rule = "argmax" if argmax else "Pallas"
+            got = cc._kernel(*a, argmax=argmax)
+            want, ms = timed_plain(lambda: cc.votes_primitives_plain(*a, argmax=argmax))
+            torch.cuda.synchronize()
+            errs.append(max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+                            for x, y in zip(got, want)))
+            require(all(torch.equal(x, y) for x, y in zip(got, want)),
+                    f"K2 ({route}, the {rule} rule) differs from votes_primitives_plain at "
+                    f"{[B, T, Q]}, longest consensus {longest} (max abs err {errs[-1]}; "
+                    + first_diffs(got, want, ("col_sym", "col_w", "ins_b", "ins_w")) + ")")
+            outs[argmax] = want
+            if argmax and longest == T:
+                plain_ms = ms
+            log(f"K2 ({route}) past Q 262,143 [B, T, Q] = {[B, T, Q]}, longest consensus "
+                f"{longest}, the {rule} rule: bit-equal, {int((got[0] < 5).sum())} column "
+                f"votes, {int((got[2] >= 0).sum())} insertions")
+        require(any(not torch.equal(x, y) for x, y in zip(outs[False], outs[True])),
+                f"K2's two start-row rules agree at PAST_K2_NEG, longest consensus {longest}: "
+                f"the case does not reach NEG")
+    a = inputs[T]
+    b, by, _ = votes_bound(a[1], a[3], T, Q)
+    return {"case": "fragments past q_len 262,143, both start-row rules", "shape": [B, T, Q],
+            "route": route, "max_abs_err": max(errs), "bound_ms": b, "bound_by": by,
+            "plain_ms": plain_ms, **time_route(lambda: cc._kernel(*a, argmax=True), route)}
+
+
+def past_band_global(device) -> list:
+    """K3's global route and K4's direct walk at PAST_BAND_GLOBAL on 16
+    windows of 120 bases x 30 with insertion runs (T 160), each bit-equal
+    to its plain version and timed beside its bound."""
+    import torch
+
+    from raven_tpu_torch.ops import band_cuda as bc
+    from raven_tpu_torch.utils.synth import make_windows
+
+    short, _ = make_windows(16, 120, 30, np.random.default_rng(21))
+    runs = insertion_runs(short)
+    out = []
+    for BW in PAST_BAND_GLOBAL:
+        T = 160
+        a = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+             for x in band_layout(runs, BW, q_pad=240, T=T)]
+        B = a[0].shape[0]
+        (r3, _), (r4, _) = bc.launch_plan(T, BW)
+        fwd, plain3 = timed_plain(lambda: bc.band_forward_plain(*a, T, BW))
+        got = bc.band_forward(*a, T, BW)
+        walk, plain4 = timed_plain(lambda: bc.mask_walk_votes_plain(*fwd, *a[2:], T, BW))
+        gv = bc.mask_walk_votes(*fwd, *a[2:], T, BW)
+        torch.cuda.synchronize()
+        err = max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+                  for x, y in zip((*got, *gv), (*fwd, *walk)))
+        require(all(torch.equal(x, y) for x, y in zip(got, fwd)),
+                f"K3 ({r3}) differs from band_forward_plain at {[B, T, BW]} (max abs err {err})")
+        require(all(torch.equal(x, y) for x, y in zip(gv, walk)),
+                f"K4 ({r4}) differs from mask_walk_votes_plain at {[B, T, BW]} (max abs err "
+                f"{err})")
+        b3, by3, _ = band_forward_bound(B, T, BW)
+        b4, by4, p4 = band_walk_bound(walk[0], B, T, BW)
+        c = {"case": f"16 windows with insertion runs, BW {BW}", "shape": [B, T, BW],
+             "routes": [r3, r4], "max_abs_err": err,
+             "K3": {"route": r3, "bound_ms": b3, "bound_by": by3, "plain_ms": plain3,
+                    **time_route(lambda: bc.band_forward(*a, T, BW), r3)},
+             "K4": {"route": r4, "bound_ms": b4, "bound_by": by4, "plain_ms": plain4,
+                    **time_route(lambda: bc.mask_walk_votes(*fwd, *a[2:], T, BW), r4)}}
+        log(f"K3 ({r3}) / K4 ({r4}) at {[B, T, BW]}: bit-equal, {p4['voted_rows']} voted rows; "
+            f"K3 {c['K3']['ms']:.4f} ms (device {fmt_ms(c['K3']['device_ms'])}), bound "
+            f"{b3:.4f} ms by {by3}, plain {plain3:.4f} ms; K4 {c['K4']['ms']:.4f} ms (device "
+            f"{fmt_ms(c['K4']['device_ms'])}), bound {b4:.4f} ms by {by4}, plain {plain4:.4f} ms")
+        out.append(c)
+        del fwd, got, walk, gv
+    return out
+
+
+def k10_wrapped(device, fwd, arrays) -> dict:
+    """K10 on up to K10_WRAPPED of the fragments whose band starts wrap in
+    K9's outputs `fwd` (moves, offs, end_scores, row0) on `arrays` (cw,
+    tlens, frags, qlens, r0, r1, wts), bit-equal to its plain version: once
+    as K9 left them (every end value there is NEG, and the walks stall on
+    the top row), and once started inside the wrapped stretch (its band at
+    column 0: an end value of 0 on the 64th row past the first wrapped one,
+    at column 200), so that each walk reads K9's moves on wrapped rows and
+    stops where the band jumps back."""
+    import torch
+
+    from raven_tpu_torch.ops import banded_cuda as bd
+
+    moves, offs, ends, row0 = fwd
+    T, Q, BW = moves.shape[0], arrays[2].shape[1], 256
+    wrapped = (offs[1:] < offs[:-1])
+    sel = torch.nonzero(wrapped.any(dim=0)).flatten()[:K10_WRAPPED]
+    require(sel.numel() > 0, "no fragment of K9_LONG has a wrapped band start")
+    _, _, fr, ql, _, _, wt = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                              for a in arrays)
+    m, o, e, r0s = (moves[:, sel].contiguous(), offs[:, sel].contiguous(),
+                    ends[:, sel].contiguous(), row0[sel].contiguous())
+    fr, ql, wt = fr[sel].contiguous(), ql[sel].contiguous(), wt[sel].contiguous()
+    n = sel.numel()
+    start = wrapped[:, sel].to(torch.int8).argmax(dim=0) + 1 + 64  # a row in the stretch
+    e2 = torch.full_like(e, bd.NEG)
+    e2[start - 1, torch.arange(n, device=device)] = 0
+    ql2 = torch.full_like(ql, 200)
+    row02 = ql2 * bd.GAP
+    out = {"fragments": n}
+    for name, args in (("as K9 left them", (m, o, e, r0s, ql)),
+                       ("started in the wrapped stretch", (m, o, e2, row02, ql2))):
+        got = bd.traceback_banded(*args, fr, wt, T, Q, BW)
+        want, kinds, _ = bd.traceback_banded_plain(*args, fr, wt, T, Q, BW, return_walks=True)
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(got, want)),
+                f"K10 differs from traceback_banded_plain on K9_LONG's wrapped rows, {name}: "
+                + first_diffs(got, want, ("col_sym", "col_w", "ins_b", "ins_w")))
+        out[name] = {"column_votes": int((want[0] < 5).sum()),
+                     "walk_ends": [int((kinds == i).sum()) for i in range(4)]}
+        log(f"K10 on {n} of K9_LONG's fragments whose band starts wrap, {name}: bit-equal, "
+            f"{out[name]['column_votes']} column votes, walks ending at column 0 / stalled / "
+            f"at the band's edge / past the consensus: {out[name]['walk_ends']}")
+    require(out["started in the wrapped stretch"]["column_votes"] > 0,
+            "K10's walks started in the wrapped stretch cast no column vote")
+    return out
+
+
 def timed_plain(plain):
     """(plain()'s result, its one call's milliseconds between two CUDA
     events): the plain version that a check compares with, timed as it
@@ -2345,9 +2550,9 @@ def time_route(fn, route: str, runs: int = 5) -> dict:
             "device_ms": device_ms(fn, ROUTE_KERNELS[route], runs=runs, warmup=1)}
 
 
-def time_k9(device, arrays) -> dict:
-    """K9 on `arrays` (cw, tlens, frags, qlens, r0, r1, wts) at BW 256: its
-    route, times and bound."""
+def time_k9(device, arrays):
+    """K9 on `arrays` (cw, tlens, frags, qlens, r0, r1, wts) at BW 256:
+    (its route, times and bound, its plain version's outputs)."""
     import torch
 
     from raven_tpu_torch.ops import banded_cuda as bd
@@ -2365,9 +2570,10 @@ def time_k9(device, arrays) -> dict:
             f"K9 ({route}) differs from its plain version at {[B, T, Q, 256]}")
     # band starts that step back: raven_tpu's (row - r0) * q_len wrapped
     wrapping = int((want[1][1:] < want[1][:-1]).any(dim=0).sum())
-    return {"route": route, "shape": [B, T, Q, 256], "bound_ms": bound, "bound_by": by,
-            "plain_ms": plain_ms, "wrapping": wrapping,
-            **time_route(lambda: bd.nw_moves_banded(cw, tl, fr, ql, r0, r1, T, Q, 256), route)}
+    out = {"route": route, "shape": [B, T, Q, 256], "bound_ms": bound, "bound_by": by,
+           "plain_ms": plain_ms, "wrapping": wrapping,
+           **time_route(lambda: bd.nw_moves_banded(cw, tl, fr, ql, r0, r1, T, Q, 256), route)}
+    return out, want
 
 
 def past_kernel_cases(device) -> dict:
@@ -2421,16 +2627,25 @@ def past_kernel_cases(device) -> dict:
     # K9's global route timed where it is needed: fragments whose bases run
     # past the shared-memory route's 55,887 columns, on consensus rows as
     # long as they are
-    out["K9_global"] = time_k9(device, banded_long_rows(*K9_LONG, n_min=K9_LONG_BASES[0],
-                                                        n_max=K9_LONG_BASES[1]))
+    long_rows = banded_long_rows(*K9_LONG, n_min=K9_LONG_BASES[0], n_max=K9_LONG_BASES[1])
+    out["K9_global"], fwd = time_k9(device, long_rows)
     t3 = time.perf_counter()
+    out["K10_wrapped"] = k10_wrapped(device, fwd, long_rows)
+    del fwd
+    t4 = time.perf_counter()
+    out["K2_neg"] = past_neg_votes(device)
+    t5 = time.perf_counter()
+    out["band_global"] = past_band_global(device)
+    t6 = time.perf_counter()
     k9g = out["K9_global"]
     log(f"K9 ({k9g['route']}) on long rows {k9g['shape']}: bit-equal, {k9g['wrapping']} "
         f"fragments whose int32 band start wraps (as raven_tpu's); {k9g['ms']:.4f} ms (device "
         f"{fmt_ms(k9g['device_ms'])}), bound {k9g['bound_ms']:.4f} ms by {k9g['bound_by']}, "
         f"plain version {k9g['plain_ms']:.4f} ms")
     log(f"phase 13(d) kernel cases: K2 {t_band - t0:.1f} s, K3/K4 {t1 - t_band:.1f} s, "
-        f"K9/K10 {t2 - t1:.1f} s, K9 global timed {t3 - t2:.1f} s")
+        f"K9/K10 {t2 - t1:.1f} s, K9 global timed {t3 - t2:.1f} s, K10 on wrapped rows "
+        f"{t4 - t3:.1f} s, K2 past Q 262,143 {t5 - t4:.1f} s, K3/K4 past BW 16,384 "
+        f"{t6 - t5:.1f} s")
     return out
 
 
@@ -2459,9 +2674,15 @@ def past_engines(device) -> dict:
     from raven_tpu_torch.ops.consensus_device import device_window_consensus
     from raven_tpu_torch.utils.synth import make_windows
 
+    from raven_tpu_torch.ops.consensus_band import band_window_consensus
+
     long16, _ = make_windows(16, 1100, 10, np.random.default_rng(31))
     win16, _ = make_windows(16, 500, 10, np.random.default_rng(33))
     _, banded, shift = engine_calls(win16, 640, 16384, 768, 256)
+    # two fragments past q_len 262,143 among 4 windows of 120 bases x 6 (in
+    # one chunk of 8), on consensus rows as long as t_pad
+    neg4 = neg_windows(4, 120, 6, 35)
+    win2, _ = make_windows(2, 100, 6, np.random.default_rng(37))
     calls = [
         ("full NW, q_pad 2048", lambda d: device_window_consensus(
             long16, iterations=2, t_pad=1280, q_pad=2048, chunk=256, device=d)),
@@ -2469,6 +2690,10 @@ def past_engines(device) -> dict:
         ("anchored banded, q_pad 65536", lambda d: device_window_consensus(
             win16, iterations=2, t_pad=640, q_pad=65536, chunk=256, banded=True, device=d)),
         shift,
+        (f"full NW, fragments of {NEG_Q} bases", lambda d: device_window_consensus(
+            neg4, iterations=2, t_pad=120, q_pad=NEG_Q, chunk=8, device=d)),
+        (f"shift-banded, bw {PAST_BAND_GLOBAL[0]}", lambda d: band_window_consensus(
+            win2, iterations=2, t_pad=128, q_pad=200, bw=PAST_BAND_GLOBAL[0], device=d)),
     ]
     out = {}
     for name, call in calls:
@@ -2565,7 +2790,7 @@ def full_batch(device, smi: str) -> dict:
     banded = banded_layout(bank, 2048, t_pad=T, q_pad=Q)
     cw9, tl9, fr9, ql9, r09, r19, wt9 = dev(banded)
     B9, BW9 = fr9.shape[0], 256
-    kernels["K9"] = time_k9(device, banded)
+    kernels["K9"], _ = time_k9(device, banded)
     fwd9 = bd.nw_moves_banded(cw9, tl9, fr9, ql9, r09, r19, T, Q, BW9)  # held to its plain
     (walk9, _, steps), plain10 = timed_plain(lambda: bd.traceback_banded_plain(
         *fwd9, ql9, fr9, wt9, T, Q, BW9, return_walks=True))
@@ -3300,13 +3525,20 @@ def run() -> dict:
     cases = past["cases"]
     k9g = cases["K9_global"]
     require(k9g["route"] == "nw_moves_banded_global", f"K9 at q_pad 65,536 took {k9g['route']}")
-    errs = {"votes_primitives_i32": cases["K2"], "band_forward_wide": cases["band"],
-            "mask_walk_votes_direct": cases["band"], "nw_moves_banded_global": cases["banded"]}
+    bg = cases["band_global"]
+    require([c["routes"] for c in bg] == [["band_forward_global", "mask_walk_votes_direct"]]
+            * len(PAST_BAND_GLOBAL), f"K3/K4 past BW 16,384 took {[c['routes'] for c in bg]}")
+    errs = {"votes_primitives_i32": [*cases["K2"], cases["K2_neg"]],
+            "band_forward_wide": cases["band"], "band_forward_global": bg,
+            "mask_walk_votes_direct": [*cases["band"], *bg],
+            "nw_moves_banded_global": cases["banded"]}
     for name, route, source, replaces, t in (
         ("window_consensus_votes_i32", "votes_primitives_i32", "consensus.cu",
          "raven_tpu/ops/pallas_consensus.py:237", fb["K2"]),
         ("band_forward_wide", "band_forward_wide", "band.cu",
          "raven_tpu/ops/consensus_band.py:97", fb["K3"]),
+        ("band_forward_global", "band_forward_global", "band.cu",
+         "raven_tpu/ops/consensus_band.py:97", {**bg[-1]["K3"], "shape": bg[-1]["shape"]}),
         ("band_walk_votes_direct", "mask_walk_votes_direct", "band.cu",
          "raven_tpu/ops/consensus_band.py:172", fb["K4"]),
         ("nw_moves_banded_global", "nw_moves_banded_global", "banded.cu",
@@ -3323,8 +3555,13 @@ def run() -> dict:
         })
     named = {k["name"]: k for k in kernels}  # the first routes past the old limits
     named["window_consensus_votes"]["past_limit_cases"] = cases["K2"]
+    named["window_consensus_votes_i32"]["past_q_262143"] = cases["K2_neg"]
+    named["band_forward_global"]["widths"] = [{"shape": c["shape"], **c["K3"]} for c in bg]
+    named["band_walk_votes_direct"]["past_bw_16384"] = [{"shape": c["shape"], **c["K4"]}
+                                                        for c in bg]
     named["nw_moves_banded"]["full_batch"] = fb["K9"]
     named["traceback_banded"]["full_batch"] = fb["K10"]
+    named["traceback_banded"]["wrapped_band_starts"] = cases["K10_wrapped"]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

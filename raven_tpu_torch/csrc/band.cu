@@ -160,7 +160,19 @@
 //     the highest word holding a move that is not left found by a ballot.
 //     The vote rows are zeroed by the warp first and lane 0 writes each vote
 //     where it is cast.  Each walked row is a dependent load from L2 or
-//     DRAM; staging only the words near the walker is later work.
+//     DRAM; staging only the words near the walker is later work.  It has
+//     no width limit of its own (up to 2^27 lanes, K3's).
+//     K3 "global" (band_forward_global_kernel), past BW 16,384: one fragment
+//     a block of 512 threads, strip s of 16 band lanes taken by thread s %
+//     512 in round s / 512 of each row, and the previous row in device
+//     memory (a scratch of BW int32 a fragment), which each strip
+//     overwrites with its new values once the round's barrier has passed
+//     (a strip reads only its own lanes and the next strip's first, which
+//     its own round or a later one writes after that barrier).  The
+//     closure's carry is the wide route's scan over all strips of the row:
+//     each round's block scan, maxed with the earlier rounds' totals.  The
+//     bases come from device memory a byte a lane and row.  A simple route:
+//     each cell's previous value is a load and its new one a store.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // (see raven_tpu_torch/csrc/__init__.py); each launcher returns the CUDA
@@ -188,6 +200,11 @@ constexpr int kGroup = 8;          // K4: lanes of the warp a fragment takes
 constexpr int kFragsPerWarp = 32 / kGroup;
 constexpr int kWalkWarps = 4;      // K4: warps a block
 constexpr int kWalkFrags = kWalkWarps * kFragsPerWarp;
+constexpr int kWideMaxBW = 1024 * C;  // K3's wide route: a block's threads of 16 lanes
+constexpr int kGlobalThreads = 512;   // K3's global route: threads a block
+// the widest band of K3's global route and K4's direct one: the closure's
+// scan adds 64 a strip to values above NEG and subtracts it from kNone
+constexpr int kMaxBWAny = 1 << 27;
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 constexpr int kFwdWarps = 4;       // K3: warps a block
@@ -796,6 +813,137 @@ band_forward_wide_kernel(const int32_t* __restrict__ cw, const int32_t* __restri
   }
 }
 
+// K3's global route: fragment blockIdx.x, kGlobalThreads threads; strip s
+// of 16 band lanes is thread s % kGlobalThreads's in round s /
+// kGlobalThreads of every row, and the previous row lies in device memory
+// (prev_all[b, BW]), overwritten strip by strip as the row goes
+__global__ void __launch_bounds__(kGlobalThreads)
+band_forward_global_kernel(const int32_t* __restrict__ cw, const int32_t* __restrict__ t_lens,
+                           const uint8_t* __restrict__ fw_sh, const int32_t* __restrict__ q_lens,
+                           const int32_t* __restrict__ r0s, uint32_t* __restrict__ moves,
+                           int32_t* __restrict__ ends, int32_t* __restrict__ row0,
+                           int32_t* __restrict__ prev_all, long long B, int T, int BW) {
+  __shared__ int s_tot[kGlobalThreads / 32];  // each warp's inclusive scan total
+  const long long b = blockIdx.x;
+  const int k = threadIdx.x;
+  const int warp = k >> 5, lane = k & 31;
+  const int G = BW / C;
+  const int rounds = (G + kGlobalThreads - 1) / kGlobalThreads;
+  const int kHalf = BW / 2;
+  const int kWords = BW / 16;
+  const uint8_t* f_row = fw_sh + b * (T + BW + 1);
+  const int32_t* c_row = cw + b * T;
+  int32_t* pv = prev_all + b * BW;
+  const int ql = q_lens[b], tl = t_lens[b], r0 = r0s[b];
+  for (int u = k; u < BW; u += kGlobalThreads) {
+    const int j = u - kHalf - r0;
+    pv[u] = (j >= 0 && j <= ql) ? j * kGap : kNeg;
+  }
+  if (k == 0) row0[b] = ql * kGap;
+  const size_t row_words = static_cast<size_t>(B) * kWords;
+  uint32_t* mv_frag = moves + b * kWords;
+  int32_t* end_out = ends + b;
+  __syncthreads();
+  for (int r = 0; r < T; ++r) {
+    const int tc = c_row[r];
+    // a code outside 0-3 never equals a fragment base
+    const uint32_t tch = (tc >= 0 && tc <= 3) ? static_cast<uint32_t>(tc) : 0xFFu;
+    const int uz = kHalf + r0 - (r + 1);      // the lane of column 0
+    const int uq = ql + kHalf + r0 - (r + 1);  // the lane of column qlen
+    int before = kNone;  // the scan's maximum over the earlier rounds' strips
+    for (int m = 0; m < rounds; ++m) {
+      const int sp = m * kGlobalThreads + k;  // my strip this round
+      const bool live = sp < G;
+      const int u0 = sp * C;
+      int prev[C];
+      int up_in = kNeg;
+      uint32_t fb = 0;  // my band lanes' bases on this row, 2 bits each
+#pragma unroll
+      for (int i = 0; i < C; ++i) {
+        prev[i] = live ? pv[u0 + i] : kNeg;
+        if (live) fb |= static_cast<uint32_t>(f_row[r + 1 + u0 + i] & 3) << (2 * i);
+      }
+      if (live && sp + 1 < G) up_in = pv[u0 + C];
+      const uint32_t x = fb ^ (tch * 0x55555555u);
+      const uint32_t mb = tch <= 3 ? ~(x | (x >> 1)) & 0x55555555u : 0u;  // 1: a match
+      int e[C];
+      uint32_t up_bits = 0;  // bit i: cell i's move is up (or it is column 0)
+#pragma unroll
+      for (int i = 0; i < C; ++i) {
+        const int dg = prev[i] + (((mb >> (2 * i)) & 1u) ? kMatch : kMismatch);
+        const int up = (i + 1 < C ? prev[i + 1] : up_in) + kGap;
+        bool diag_won;
+        e[i] = __vibmax_s32(dg, up, &diag_won);
+        up_bits |= static_cast<uint32_t>(!diag_won) << i;
+      }
+      // the free consensus prefix, before the closure
+      if (uz >= 0 && uz < BW && sp == uz / C) {
+        const uint32_t at = 1u << (uz % C);
+#pragma unroll
+        for (int i = 0; i < C; ++i) e[i] = (at >> i) & 1u ? 0 : e[i];
+        up_bits |= at;
+      }
+      int run = kNone;
+#pragma unroll
+      for (int i = 0; i < C; ++i) run = __viaddmax_s32(run, kGap, e[i]);
+      // the carry into my strip: an exclusive prefix max over every strip
+      // before it of run_m - 16 GAP m, less 16 GAP (sp - 1), as the wide
+      // route's, the earlier rounds' strips included
+      int inc = live ? run - C * kGap * sp : kNone;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, inc, o);
+        if (lane >= o) inc = max(inc, y);
+      }
+      if (lane == 31) s_tot[warp] = inc;
+      __syncthreads();  // every read of this round's previous row is done
+      int exc = __shfl_up_sync(kFull, inc, 1);
+      if (lane == 0) exc = kNone;
+      int total = kNone;
+      for (int w = 0; w < kGlobalThreads / 32; ++w) {
+        if (w < warp) exc = max(exc, s_tot[w]);
+        total = max(total, s_tot[w]);
+      }
+      exc = max(exc, before);
+      before = max(before, total);
+      const int carry = sp == 0 ? kNone : exc + C * kGap * (sp - 1);
+      int d[C];
+      uint32_t left_bits = 0;
+      run = carry;
+#pragma unroll
+      for (int i = 0; i < C; ++i) {
+        run = __viaddmax_s32(run, kGap, e[i]);
+        d[i] = run;
+        left_bits |= static_cast<uint32_t>(run != e[i]) << i;
+      }
+      if (live) {
+        mv_frag[static_cast<size_t>(r) * row_words + sp] =
+            spread2(up_bits & ~left_bits) | (spread2(left_bits) << 1);
+        // lanes outside 0 <= j <= qlen hold NEG
+        const int jb = r + 1 + u0 - kHalf - r0;
+        const int lo = max(-jb, 0), hi = min(ql - jb, C - 1);
+        const uint32_t in = lo <= hi ? ((2u << hi) - 1u) & ~((1u << lo) - 1u) : 0u;
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          d[i] = (in >> i) & 1u ? d[i] : kNeg;
+          pv[u0 + i] = d[i];
+        }
+      }
+      // the row's end score: from the strip of column qlen, or NEG from
+      // strip 0 when that column is outside the band
+      if (uq >= 0 && uq < BW) {
+        if (sp == uq / C) {
+          const int v = pick(d, uq % C);
+          end_out[static_cast<size_t>(r) * B] = r < tl ? max(v, kNeg) : kNeg;
+        }
+      } else if (sp == 0) {
+        end_out[static_cast<size_t>(r) * B] = kNeg;
+      }
+      __syncthreads();  // s_tot is free, and this round's row is written
+    }
+  }
+}
+
 // K4's direct route: fragment 4 blockIdx.x + warp, the walk the same in
 // every lane of the warp
 __global__ void __launch_bounds__(32 * kWalkWarps)
@@ -948,9 +1096,13 @@ int launch_walk(const void* moves, const void* ends, const void* row0, const voi
 }
 
 bool supported(int T, int BW) { return T >= 1 && BW >= 16 && BW <= kMaxBW && BW % 16 == 0; }
-// the wide and direct routes: any T, BW up to 1024 threads of 16 lanes
+// K3's wide route: any T, BW up to 1024 threads of 16 lanes; its global
+// route and K4's direct one: any T, BW up to kMaxBWAny
 bool supported_wide(int T, int BW) {
-  return T >= 1 && BW >= 16 && BW <= 1024 * C && BW % 16 == 0;
+  return T >= 1 && BW >= 16 && BW <= kWideMaxBW && BW % 16 == 0;
+}
+bool supported_any(int T, int BW) {
+  return T >= 1 && BW >= 16 && BW <= kMaxBWAny && BW % 16 == 0;
 }
 
 }  // namespace
@@ -1021,14 +1173,37 @@ int raven_band_forward_wide_launch(const void* cw, const void* t_lens, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4's direct route, a warp a fragment (per_block 4), for any T and any BW
-// K3's wide route takes: arguments and outputs as raven_band_walk_launch.
+// K3's global route, one fragment a block (per_block 1), for any T and BW
+// a multiple of 16 up to 2^27: arguments and outputs as
+// raven_band_forward_launch, and prev a scratch of B * BW int32 (each
+// fragment's previous DP row).
+int raven_band_forward_global_launch(const void* cw, const void* t_lens, const void* fw_sh,
+                                     const void* q_lens, const void* r0, void* moves,
+                                     void* ends, void* row0, void* prev, long long B, int T,
+                                     int BW, void* stream, int per_block) {
+  if (B == 0) return 0;
+  if (!supported_any(T, BW) || per_block != 1 || B > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  band_forward_global_kernel<<<static_cast<unsigned>(B), kGlobalThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(cw), static_cast<const int32_t*>(t_lens),
+      static_cast<const uint8_t*>(fw_sh), static_cast<const int32_t*>(q_lens),
+      static_cast<const int32_t*>(r0), static_cast<uint32_t*>(moves),
+      static_cast<int32_t*>(ends), static_cast<int32_t*>(row0), static_cast<int32_t*>(prev), B,
+      T, BW);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4's direct route, a warp a fragment (per_block 4), for any T and BW a
+// multiple of 16 up to 2^27: arguments and outputs as
+// raven_band_walk_launch.
 int raven_band_walk_direct_launch(const void* moves, const void* ends, const void* row0,
                                   const void* fw_sh, const void* q_lens, const void* r0,
                                   void* votes, void* ins, long long B, int T, int BW,
                                   void* stream, int per_block) {
   if (B == 0) return 0;
-  if (!supported_wide(T, BW) || per_block != kWalkWarps) {
+  if (!supported_any(T, BW) || per_block != kWalkWarps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long blocks = (B + per_block - 1) / per_block;

@@ -13,7 +13,8 @@
 //   the left closure cm = inclusive prefix max over j of (e - j*GAP),
 //   closed = max(cm, 0) + j*GAP, move left only when closed > e.
 //   The walk starts at column qlen, at row 0 when qlen*GAP >= the best end
-//   value over the active rows, else one below the first row holding it;
+//   value over the active rows (from NEG = -2^20: no row when none exceeds
+//   it, and then row 0 stands in), else one below the first row holding it;
 //   it writes col[t-1] = 1 | sym<<1 | w<<4 on diag (sym = fragment base)
 //   and up (sym = 4), and ins[t] = 1 | base<<1 | w<<3 where a run of left
 //   moves starts (in walk order).  Outputs decode as the TPU wrapper does:
@@ -87,9 +88,15 @@
 // warp's 6T + 2Q + 99 words past a block's 227 KB of shared memory (T >
 // 9,412 at Q = 768, which binds before the 16-bit range does).  The
 // wrapper's launch_plan picks the route and its fragments a block from the
-// shape, and the launcher takes both; it refuses Q >= 262,144, where an end
-// value can reach the sentinel kNeg = -2^20 (D >= -4Q) that the best-row
-// choice reads as "no end value yet".  One fragment a
+// shape, and the launcher takes both.  From Q * |GAP| > 2^20 on, every end
+// value can fall below NEG (D >= -4Q), and raven_tpu's two K2 versions pick
+// the walk's row differently there: its Pallas kernel as above, its XLA
+// engine (fused_votes_kernel) by jnp.argmax over all T rows with NEG at
+// and past tlen, so that row tlen, inactive, wins once every active value
+// is below NEG, and a walk from there reads move 3 and casts nothing.  The
+// route takes the rule as a template argument (the wrapper passes the one
+// of the raven_tpu function its caller stands for); the pair route's
+// shapes never reach NEG, so it has one.  One fragment a
 // warp, one cell to a 32-bit value: D itself, no row shift and no bias, the
 // moves and ties of the plain version (which is int32 already).  The rows
 // are the pair route's lane-pipelined 256-column tiles (8 columns a lane,
@@ -111,6 +118,7 @@
 // the CUDA error code and the Python wrapper raises on any non-zero value.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -524,6 +532,9 @@ __device__ __forceinline__ void forward_tile_i32(
   }
 }
 
+// kArgmax picks the walk's start row by raven_tpu's jnp.argmax (the
+// engine's fused_votes_kernel), else by its Pallas kernel's rule
+template <bool kArgmax>
 __global__ void __launch_bounds__(32)
 votes_primitives_i32_kernel(const int32_t* __restrict__ cw,
                             const int32_t* __restrict__ tlens,
@@ -542,8 +553,11 @@ votes_primitives_i32_kernel(const int32_t* __restrict__ cw,
   const long long b = blockIdx.x;
   const int tl = min(max(tlens[b], 0), T);
   const int ql = min(max(qlens[b], 0), Q);
-  // a fragment without bases needs no row (its walk writes nothing)
-  const int tmax = ql > 0 ? tl : 0;
+  // a fragment without bases needs no row (its walk writes nothing); the
+  // active rows are its consensus rows, and row 0 is computed for an empty
+  // consensus too (the Pallas rule's walk can start at row 1 there)
+  const int tact = ql > 0 ? tl : 0;
+  const int tmax = ql > 0 ? max(tl, 1) : 0;
   const int kt = tiles(ql);
   const int off = kt * kTile - ql;  // column qlen is the last tile's last
   const int T31 = T + 31;
@@ -588,10 +602,14 @@ votes_primitives_i32_kernel(const int32_t* __restrict__ cw,
     __syncwarp();
   }
 
-  // the best end value over the rows: the first maximal row wins
-  int best_v = kNeg, best_r = 0;
-  for (int rr = lane; rr < tmax; rr += 32) {
-    const int x = bnd[rr + 1];
+  // the best end value over the rows, the first maximal row winning.
+  // The Pallas rule: over the active rows, from NEG (row 0 when no value
+  // exceeds NEG).  The argmax rule: over all T rows, NEG at and past
+  // tlen, so that row tlen stands for the inactive ones.
+  int best_v = kArgmax ? INT_MIN : kNeg, best_r = 0;
+  const int rows = kArgmax ? min(tact + 1, T) : tact;
+  for (int rr = lane; rr < rows; rr += 32) {
+    const int x = !kArgmax || rr < tact ? bnd[rr + 1] : kNeg;
     if (x > best_v) {
       best_v = x;
       best_r = rr;
@@ -612,6 +630,9 @@ votes_primitives_i32_kernel(const int32_t* __restrict__ cw,
   if (lane == 0) {
     wj = ql;
     wt = ql * kGap >= best_v ? 0 : best_r + 1;
+    // the argmax rule's walk from a row past the consensus reads move 3
+    // (inactive) there and casts nothing
+    if (kArgmax && wt > tact) wj = 0;
   }
   int bk = -1, bs0 = 0, bl0 = 0;  // the walker's box: tile, first step, first lane
   while (true) {
@@ -704,21 +725,24 @@ votes_primitives_i32_kernel(const int32_t* __restrict__ cw,
 extern "C" {
 
 // Launches K2's int32 route on `stream` over B fragments, one a block
-// (per_block 1), for any T, Q >= 1: inputs and outputs as
-// raven_votes_primitives_launch; moves a scratch of a 16-bit word a lane
-// and step (T + 31 steps a tile, ceil(Q / 256) tiles a fragment), bnd one
-// of B * (T + 1) int32.
+// (per_block 1), for T, Q >= 1 with 4 (T + Q) + 1024 in int32: inputs and
+// outputs as raven_votes_primitives_launch; moves a scratch of a 16-bit
+// word a lane and step (T + 31 steps a tile, ceil(Q / 256) tiles a
+// fragment), bnd one of B * (T + 1) int32.  argmax non-zero picks the
+// walk's start row by raven_tpu's jnp.argmax, else by its Pallas kernel's
+// rule.
 int raven_votes_primitives_i32_launch(const void* cw, const void* tlens, const void* frags,
                                       const void* qlens, const void* wts, void* moves,
                                       void* bnd, void* col_sym, void* col_w, void* ins_b,
                                       void* ins_w, long long B, int T, int Q, void* stream,
-                                      int per_block) {
+                                      int per_block, int argmax) {
   if (B == 0) return 0;
-  if (T < 1 || Q < 1 || per_block != 1 || B > 0x7FFFFFFFLL) {
+  if (T < 1 || Q < 1 || per_block != 1 || B > 0x7FFFFFFFLL ||
+      4LL * (static_cast<long long>(T) + Q) + 1024 > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  votes_primitives_i32_kernel<<<static_cast<unsigned>(B), 32, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = argmax ? votes_primitives_i32_kernel<true> : votes_primitives_i32_kernel<false>;
+  kernel<<<static_cast<unsigned>(B), 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(cw), static_cast<const int32_t*>(tlens),
       static_cast<const int32_t*>(frags), static_cast<const int32_t*>(qlens),
       static_cast<const int32_t*>(wts), static_cast<uint16_t*>(moves),

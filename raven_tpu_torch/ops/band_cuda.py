@@ -17,9 +17,10 @@ and the epilogue together: the drop-in for raven_tpu's mask_walk_votes.
 
 `LAUNCHES` counts kernel launches per kernel, so a run can show that its main
 path went through the kernels, and `ROUTE_LAUNCHES` per route: `launch_plan`
-picks, from the shape, K3's strip kernels ("band_forward") or its wide one
+picks, from the shape, K3's strip kernels ("band_forward"), its wide one
 ("band_forward_wide", BW above 512 or consensus rows past a block's shared
-memory), and K4's staged walk ("mask_walk_votes") or its direct one
+memory) or its global one ("band_forward_global", BW above 16,384), and
+K4's staged walk ("mask_walk_votes") or its direct one
 ("mask_walk_votes_direct").
 """
 
@@ -33,19 +34,18 @@ from raven_tpu_torch.csrc import SMEM_BYTES
 
 NEG = -(1 << 20)
 MATCH, MISMATCH, GAP = 3, -5, -4
-# the widest band the kernels take: K3 holds 16 band lanes a thread, at
-# most a block's 1024 threads a fragment (raven_tpu takes any multiple of 16)
-KERNEL_MAX_BW = 16384
+# K3's wide route holds 16 band lanes a thread, at most a block's 1024
+# threads a fragment; past it, its global route keeps the previous row in
+# device memory
+WIDE_MAX_BW = 16384
+# the widest band the kernels take (raven_tpu takes any multiple of 16): the
+# closure's scan adds 64 a strip of 16 lanes to int32 values
+KERNEL_MAX_BW = 1 << 27
 STRIP_MAX_BW = 512  # the strip kernels: at most a warp's 32 lanes a fragment
 WALK_STATIC_BYTES = 2 * 4 * 16 * 4  # K4's best-row tables, beside its staging
 LAUNCHES = {"band_forward": 0, "mask_walk_votes": 0}
-ROUTE_LAUNCHES = {"band_forward": 0, "band_forward_wide": 0, "mask_walk_votes": 0,
-                  "mask_walk_votes_direct": 0}
-
-
-def _word_bits(x):
-    """int64 values in [0, 2^32) as int32 words of the same bits."""
-    return (x - ((x >> 31) << 32)).to(torch.int32)
+ROUTE_LAUNCHES = {"band_forward": 0, "band_forward_wide": 0, "band_forward_global": 0,
+                  "mask_walk_votes": 0, "mask_walk_votes_direct": 0}
 
 
 def band_forward_plain(cw, t_lens, fw_sh, q_lens, r0, T: int, BW: int):
@@ -56,43 +56,61 @@ def band_forward_plain(cw, t_lens, fw_sh, q_lens, r0, T: int, BW: int):
     int32.  At DP row r the band lane u holds fragment column
     j = r + u - BW/2 - r0.  Returns (moves [T, B, BW/16] int32, 2 bits a
     lane, end_scores [T, B] int32, row0_score [B] int32); move codes 0 diag,
-    1 up or the free column j == 0, 2 left."""
+    1 up or the free column j == 0, 2 left.
+
+    Lane u of DP row r reads position k = r + u of the shifted rows, whose
+    column k - BW/2 - r0 does not depend on r: each row's mask of the lanes
+    outside [0, q_len] is a slice of one mask over k, and the lanes of
+    columns 0 and q_len are one a fragment.  Masks are clamps and maxima,
+    not torch.where, which costs several times as much on the CPU."""
     B = cw.shape[0]
     dev = cw.device
-    i32 = torch.int32
+    i32, i64, u8 = torch.int32, torch.int64, torch.uint8
     half = BW // 2
-    u = torch.arange(BW, dtype=i32, device=dev)[None, :]
-    u4 = u * -GAP
-    ql = q_lens[:, None]
-    j0 = u - half - r0[:, None]  # j at DP row 0
-    prev = torch.where((j0 >= 0) & (j0 <= ql), j0 * GAP, NEG).to(i32)
-    fch = (fw_sh.to(i32) & 3).contiguous()
-    neg_col = torch.full((B, 1), NEG, dtype=i32, device=dev)
-    shifts = 2 * torch.arange(16, dtype=torch.int64, device=dev)
-    in_rows = torch.arange(T, device=dev)[:, None] < t_lens[None, :]
+    jk = torch.arange(T + BW + 1, dtype=i32, device=dev)[None, :] - half - r0[:, None]
+    outside = (jk < 0) | (jk > q_lens[:, None])
+    # a clamp to [lo, hi] sets the lanes outside the fragment to NEG
+    lo = torch.where(outside, NEG, torch.iinfo(i32).min).to(i32)
+    hi = torch.where(outside, NEG, torch.iinfo(i32).max).to(i32)
+    prev = torch.where(outside[:, :BW], NEG, jk[:, :BW] * GAP).to(i32)
+    u4 = torch.arange(BW, dtype=i32, device=dev)[None, :] * -GAP
+    fch = (fw_sh & 3).to(torch.int8)
+    c8 = cw.clamp(-1, 4).to(torch.int8)  # pad: -1, never a base
+    rows = torch.arange(B, device=dev)
+    r0l, qll, tll = r0.to(i64), q_lens.to(i64), t_lens.to(i64)
+    up = torch.empty((B, BW), dtype=i32, device=dev)
+    up[:, -1] = NEG + GAP
     moves = torch.empty((T, B, BW // 16), dtype=i32, device=dev)
     ends = torch.empty((T, B), dtype=i32, device=dev)
     for r in range(T):
-        j = j0 + (r + 1)
-        same = fch[:, r + 1 : r + 1 + BW] == cw[:, r : r + 1]
-        diag = prev + (same.to(i32) * (MATCH - MISMATCH) + MISMATCH)
-        up = torch.cat([prev[:, 1:], neg_col], dim=1) + GAP
-        take_diag = diag >= up
-        e = torch.where(take_diag, diag, up)
-        mv = (~take_diag).to(torch.int64)
+        k = slice(r + 1, r + 1 + BW)
+        same = torch.eq(fch[:, k], c8[:, r : r + 1])
+        diag = torch.add(prev, same, alpha=MATCH - MISMATCH).add_(MISMATCH)
+        torch.add(prev[:, 1:], GAP, out=up[:, :-1])
+        e = torch.maximum(diag, up)  # ties: diag
+        mv = torch.gt(up, diag).view(u8)
         # free consensus prefix: column j == 0 restarts at 0, before the
         # closure
-        at0 = j == 0
-        e = torch.where(at0, 0, e)
-        mv = torch.where(at0, 1, mv)
+        u0 = half - 1 - r + r0l
+        ok0 = (u0 >= 0) & (u0 < BW)
+        u0 = u0.clamp(0, BW - 1)
+        e[rows, u0] = torch.where(ok0, 0, e[rows, u0])
+        mv[rows, u0] = torch.where(ok0, 1, mv[rows, u0]).to(u8)
         # left closure within the band: cummax(e - u*GAP) + u*GAP
-        closed = torch.cummax(e + u4, dim=1).values - u4
-        left = closed > e
-        cur = torch.where(left, closed, e)
-        mv = torch.where(left, 2, mv)
-        cur = torch.where((j >= 0) & (j <= ql), cur, NEG)
-        ends[r] = torch.where((j == ql) & in_rows[r][:, None], cur, NEG).max(dim=1).values
-        moves[r] = _word_bits((mv.view(B, BW // 16, 16) << shifts).sum(dim=2))
+        closed = torch.cummax(e + u4, dim=1).values.sub_(u4)
+        left = torch.gt(closed, e)
+        cur = torch.maximum(closed, e).clamp_(lo[:, k], hi[:, k])
+        mv = torch.maximum(mv, left.view(u8) << 1)
+        # the end score: the lane of column q_len on a consensus row, every
+        # other lane NEG
+        uq = qll + half - 1 - r + r0l
+        okq = (uq >= 0) & (uq < BW) & (r < tll)
+        ends[r] = torch.where(okq, cur[rows, uq.clamp(0, BW - 1)], NEG).clamp_(min=NEG)
+        # lane 16w + i at bits 2i of word w: four lanes a byte, four bytes a
+        # little-endian word
+        x = mv.view(B, BW // 2, 2)
+        y = (x[:, :, 0] | (x[:, :, 1] << 2)).view(B, BW // 4, 2)
+        moves[r] = (y[:, :, 0] | (y[:, :, 1] << 4)).view(i32)
         prev = cur
     return moves, ends, (q_lens * GAP).to(i32)
 
@@ -115,7 +133,7 @@ def mask_walk_votes_plain(moves, end_scores, row0_score, fw_sh, q_lens, r0, T: i
     insertion 1 | base<<1 | w<<3, 0 where nothing was cast."""
     B = q_lens.shape[0]
     dev = q_lens.device
-    i64 = torch.int64
+    i32, i64 = torch.int32, torch.int64
     half = BW // 2
     ends = end_scores.to(i64)
     best, best_r = ends.max(dim=0).values, ends.argmax(dim=0)  # ties: the first best row
@@ -123,36 +141,41 @@ def mask_walk_votes_plain(moves, end_scores, row0_score, fw_sh, q_lens, r0, T: i
     ql = q_lens.to(i64)
     rz = r0.to(i64)
     fw = fw_sh.to(i64)
-    u = torch.arange(BW, device=dev)[None, :]
-    shifts = 2 * torch.arange(16, dtype=i64, device=dev)
+    # lane u's key u + 1, in the narrowest type that holds BW
+    kt = torch.int16 if BW < (1 << 15) else i32
+    u1 = torch.arange(1, BW + 1, dtype=kt, device=dev)[None, :]
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=dev)
     bidx = torch.arange(B, device=dev)
     p = torch.full((B,), -1, dtype=i64, device=dev)  # the walker's lane, -1: none
-    votes = torch.zeros((B, T), dtype=torch.int32, device=dev)
-    ins = torch.zeros((B, T + 1), dtype=torch.int32, device=dev)
+    votes = torch.zeros((B, T), dtype=i32, device=dev)
+    ins = torch.zeros((B, T + 1), dtype=i32, device=dev)
     for r in range(T, 0, -1):
         u_init = ql + half + rz - r
         p = torch.where((t0 == r) & (u_init >= 0) & (u_init < BW), u_init, p)
-        mv = ((moves[r - 1].to(i64)[:, :, None] >> shifts) & 3).view(B, BW)
+        # the row's moves: four lanes a byte of the little-endian words
+        mv = ((moves[r - 1].view(torch.uint8)[:, :, None] >> shifts) & 3).view(B, BW)
         fw_row = fw[:, r : r + BW]
         ulo = 1 + half + rz - r  # the lowest lane with j >= 1
         pc = p.clamp(min=0)
         has_ins = (p >= 0) & (mv[bidx, pc] == 2) & (pc >= ulo)
-        ins[:, r] = torch.where(has_ins, 1 | (fw_row[bidx, pc] << 1), 0).to(torch.int32)
-        cand = (u <= p[:, None]) & (u >= ulo[:, None]) & (mv != 2)
-        q = torch.where(cand, u, -1).max(dim=1).values
+        ins[:, r] = torch.where(has_ins, 1 | (fw_row[bidx, pc] << 1), 0).to(i32)
+        # the highest lane <= p whose move is not left (keys of the others
+        # 0), if it is not below ulo
+        key = (mv != 2).to(kt).mul_(u1)
+        key.masked_fill_(u1 > (p + 1)[:, None].to(kt), 0)
+        q = key.amax(dim=1).to(i64) - 1
+        q = torch.where(q >= ulo, q, -1)
         qc = q.clamp(min=0)
-        mv_q = mv[bidx, qc]
+        mv_q = mv[bidx, qc].to(i64)
         fw_q = fw_row[bidx, qc]
         col = torch.where(mv_q == 0, fw_q & 3, 4)
-        votes[:, r - 1] = torch.where(q >= 0, 1 | (col << 1) | ((fw_q >> 2) << 4), 0).to(
-            torch.int32
-        )
+        votes[:, r - 1] = torch.where(q >= 0, 1 | (col << 1) | ((fw_q >> 2) << 4), 0).to(i32)
         nxt = torch.where(mv_q == 0, qc, qc + 1)
         p = torch.where((q >= 0) & (nxt < BW) & (nxt + r - half - rz > 1), nxt, -1)
     u_init = ql + half + rz
     p = torch.where((t0 == 0) & (u_init >= 0) & (u_init < BW), u_init, p)
     ok = (p >= 0) & (p - half - rz >= 1)
-    ins[:, 0] = torch.where(ok, 1 | (fw[bidx, p.clamp(min=0)] << 1), 0).to(torch.int32)
+    ins[:, 0] = torch.where(ok, 1 | (fw[bidx, p.clamp(min=0)] << 1), 0).to(i32)
     return votes, ins
 
 
@@ -201,12 +224,12 @@ def _check(named, device):
 def check_kernel_shape(T: int, BW: int):
     """Raise ValueError on a shape the card kernels do not take: BW not a
     multiple of 16 (raven_tpu packs a row's moves in BW / 16 words), BW
-    above KERNEL_MAX_BW (K3's wide route holds 16 band lanes in each of a
-    block's at most 1024 threads), or T < 1."""
+    above KERNEL_MAX_BW (K3's closure adds 64 a strip of 16 lanes to int32
+    values), or T < 1."""
     if BW % 16 or not 16 <= BW <= KERNEL_MAX_BW or T < 1:
         raise ValueError(
-            f"the band kernels take BW a multiple of 16 from 16 to {KERNEL_MAX_BW} (a "
-            f"block's 1024 threads of 16 band lanes) and T >= 1, got BW={BW}, T={T}"
+            f"the band kernels take BW a multiple of 16 from 16 to {KERNEL_MAX_BW} (K3's "
+            f"closure scan in int32) and T >= 1, got BW={BW}, T={T}"
         )
 
 
@@ -222,9 +245,12 @@ def launch_plan(T: int, BW: int) -> tuple[tuple[str, int], tuple[str, int]]:
     1).  K4: ("mask_walk_votes", 16) while BW <= STRIP_MAX_BW and 16 times
     2 * 32 * BW / 4 + round16(T + BW + 1) bytes fit beside its best-row
     tables (at BW 256, T <= 10,143; at 512, T <= 5,791), else
-    ("mask_walk_votes_direct", 4).  Raises as check_kernel_shape."""
+    ("mask_walk_votes_direct", 4).  Past WIDE_MAX_BW, K3 takes
+    ("band_forward_global", 1).  Raises as check_kernel_shape."""
     check_kernel_shape(T, BW)
     fwd, walk = ("band_forward_wide", 1), ("mask_walk_votes_direct", 4)
+    if BW > WIDE_MAX_BW:
+        fwd = ("band_forward_global", 1)
     if BW <= STRIP_MAX_BW:
         n = 8 if BW <= 256 else 4
         if n * (_round16(T + BW + 1) + _round16(T)) <= SMEM_BYTES:
@@ -259,6 +285,10 @@ def _fns():
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = ctypes.c_int, fwd.argtypes
             fns[route] = fn
+        fn = lib.raven_band_forward_global_launch  # with the previous row's scratch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 9 + fwd.argtypes[8:]
+        fns["band_forward_global"] = fn
         _FNS = lib, fns
     return _FNS
 
@@ -281,14 +311,15 @@ def _forward_kernel(cw, t_lens, fw_sh, q_lens, r0, T: int, BW: int):
     if B == 0:
         return moves, ends, row0
     lib, fns = _fns()
+    ptrs = [x.data_ptr() for x in (cw, t_lens, fw_sh, q_lens, r0, moves, ends, row0)]
+    if route == "band_forward_global":  # each fragment's previous row
+        prev = torch.empty(B * BW, dtype=i32, device=dev)
+        ptrs.append(prev.data_ptr())
     # the tensors' card is current for the launch and its shared-memory
     # limit, and the launch goes on that card's stream
     with torch.cuda.device(dev):
-        err = fns[route](
-            cw.data_ptr(), t_lens.data_ptr(), fw_sh.data_ptr(), q_lens.data_ptr(),
-            r0.data_ptr(), moves.data_ptr(), ends.data_ptr(), row0.data_ptr(), B, T, BW,
-            torch.cuda.current_stream(dev).cuda_stream, per_block,
-        )
+        err = fns[route](*ptrs, B, T, BW, torch.cuda.current_stream(dev).cuda_stream,
+                         per_block)
     csrc.check(lib, err, "banded forward kernel launch")
     LAUNCHES["band_forward"] += 1
     ROUTE_LAUNCHES[route] += 1

@@ -12,8 +12,13 @@ bit-identical to the TPU kernel's outputs (whose insertion tables are
 written there).
 
 `votes_from_primitives` is the epilogue (integer scatter-adds into the
-per-window tables) and `fused_votes` the drop-in for
-raven_tpu.ops.consensus_device.fused_votes_kernel(band=0).
+per-window tables), `fused_votes` the drop-in for
+raven_tpu.ops.consensus_device.fused_votes_kernel(band=0) and
+`fused_votes_pallas` the one for raven_tpu's fused_votes_pallas.  The two
+raven_tpu functions pick the walk's start row by different rules, which
+part once a fragment's end values all fall below NEG (q_len * |GAP| >
+2^20): each port function takes the rule of the function it stands for
+(votes_primitives_plain's `argmax`).
 
 `LAUNCHES` counts kernel launches, so a run can show that its main path
 went through the kernel, and `ROUTE_LAUNCHES` counts them per route:
@@ -36,25 +41,34 @@ LAUNCHES = 0
 ROUTE_LAUNCHES = {"votes_primitives": 0, "votes_primitives_i32": 0}
 PAIR_MAX_Q = 1024  # the pair route's column tiles: four of 256
 PAIR_BIAS = 0xC000  # the pair route's values D - 3r + 0xC000 lie in 16 bits
-# the widest fragment the card takes: from Q * |GAP| = 2^20 on, an end
-# value (D >= Q * GAP) can reach NEG, which the best-row choice reads as "no
-# end value yet", and raven_tpu's two K2 versions (its Pallas kernel and
-# XLA scan) part there
-NEG_MAX_Q = -NEG // -GAP - 1
+# the int32 route's values and positions lie within 4 (T + Q) + 1024 of 0
+I32_MAX_TQ = ((1 << 31) - 1 - 1024) // 4
+RUN_WINDOW = 64  # the plain walk's cells of a left run a step
 BOX_WORDS = 64 * 8  # the pair route's traceback box
 
 
-def votes_primitives_plain(cw, tlens, frags, qlens, wts):
+def votes_primitives_plain(cw, tlens, frags, qlens, wts, argmax: bool = False):
     """cw [B, T] int32 window consensus per fragment (pad < 0), tlens [B],
     frags / wts [B, Q] int32 (frags pad -1, weights 0-255), qlens [B].
     Returns (col_sym, col_w [B, T], ins_b, ins_w [B, T+1]) int32.
 
     The forward is a loop over the T rows of [B, Q] tensors with a row-wise
     cummax for the left closure; the traceback walks all B fragments in
-    lockstep, one move per step, as raven_tpu's traceback_kernel does, and
-    the walk's steps turn into vote primitives afterwards, as its
-    _votes_from_paths does.  Rows at or past max(tlens) and columns past
-    max(qlens) never reach an output, so they are not computed."""
+    lockstep and the walk's moves turn into vote primitives as raven_tpu's
+    _votes_from_paths turns them.  A step of the walk takes one diag or up
+    move, or a whole run of left moves up to RUN_WINDOW columns at a time
+    (a run casts one insertion, at its first move), so a walk takes about
+    two steps a consensus row however long its fragment is.  Rows at or
+    past max(tlens) and columns past max(qlens) never reach an output, so
+    they are not computed.
+
+    The walk's start row: with argmax False, the Pallas kernel's rule (the
+    first active row whose end value exceeds NEG and is the greatest, row 0
+    when none does); with argmax True, raven_tpu's nw_moves_kernel and
+    traceback_kernel's (jnp.argmax over every row's end value, NEG on the
+    rows at or past tlen, so once every end value is below NEG the first
+    such row wins, and a walk that starts there reads move 3 and casts
+    nothing).  The two part only where q_len * |GAP| > 2^20."""
     B, T = cw.shape
     Q = frags.shape[1]
     dev = cw.device
@@ -96,33 +110,62 @@ def votes_primitives_plain(cw, tlens, frags, qlens, wts):
         )
         prev = torch.maximum(closed, e)
         ends[r] = prev[rows, qcol]
-    # best end over the active rows, the first maximum row winning
+    # the best end over the active rows, the first maximum row winning
     active = (torch.arange(Te, device=dev)[:, None] < tl[None, :]) & (ql > 0)
     ends = torch.where(active, ends, NEG)
+    if argmax and Te < T:
+        # the rows past every consensus: NEG for all, the first standing
+        # for them all
+        ends = torch.cat([ends, torch.full((1, B), NEG, dtype=i32, device=dev)])
     best_val, best_r = ends.max(dim=0)  # ties: the first maximal row
-    best_r = torch.where(best_val > NEG, best_r, 0)
-
-    # traceback in lockstep; each step lowers t or j by one
+    if not argmax:
+        best_r = torch.where(best_val > NEG, best_r, 0)
+        best_val = best_val.clamp(min=NEG)
     t = torch.where(ql * GAP >= best_val, 0, best_r + 1)
     j = ql.clone()
-    steps = int((t + j).max())
+    if argmax:
+        # move 3 on a row past the consensus: no walk (t 0 keeps the walk's
+        # gather inside `moves`, whose rows end at Te)
+        past = t > tl
+        j = torch.where(past, 0, j)
+        t = torch.where(past, 0, t)
+
+    # the walk in lockstep.  A step looks at the run of up to W cells
+    # from (t, j) leftwards on the walker's row: the first that is column 0
+    # or holds another move than left ends it (every cell of row 0 is left)
+    W = min(RUN_WINDOW, Qe + 1)
+    kk = torch.arange(W, device=dev)
     mflat = moves.reshape(-1)
     pk = (frags.to(i64).clamp(0, 3) | (wts.to(i64) << 2)).reshape(-1)
     row_q = rows * Q
-    hist_t = torch.empty((steps, B), dtype=i64, device=dev)
-    hist_mv = torch.empty((steps, B), dtype=i64, device=dev)
-    hist_pk = torch.empty((steps, B), dtype=i64, device=dev)
-    for s in range(steps):
-        tm1 = (t - 1).clamp_(min=0)
-        jm1 = (j - 1).clamp_(min=0)
-        mv = mflat[(tm1 * B + rows) * Qe + jm1.clamp(max=Qe - 1)].to(i64)
-        mv = torch.where(t == 0, 2, mv)
-        mv = torch.where(j > 0, mv, 3)  # 3: the walk has ended
-        hist_t[s] = t
-        hist_mv[s] = mv
-        hist_pk[s] = pk[row_q + jm1]
-        t = t - (mv <= 1).to(i64)
-        j = j - ((mv == 0) | (mv == 2)).to(i64)
+    in_run = torch.zeros(B, dtype=torch.bool, device=dev)
+    hist_t, hist_j, hist_kind = [], [], []  # kind 0 diag, 1 up, 2 insertion, 3 none
+    while True:
+        walking = j > 0
+        if not bool(walking.any()):
+            break
+        cols = j[:, None] - kk[None, :]  # the run's cells, j down to j - W + 1
+        base = ((t - 1).clamp(min=0) * B + rows) * Qe
+        mv = mflat[(base[:, None] + (cols - 1).clamp(0, Qe - 1)).reshape(-1)].view(B, W)
+        mv = torch.where(t[:, None] > 0, mv.to(i64), 2)
+        stop = (cols <= 0) | (mv != 2)
+        k = stop.to(torch.int8).argmax(dim=1)  # the first stop; 0 when none
+        found = stop.any(dim=1)
+        here = mv[:, 0]
+        step_col = walking & (here != 2)
+        step_ins = walking & (here == 2) & ~in_run
+        hist_t.append(t)
+        hist_j.append(j)
+        hist_kind.append(torch.where(step_col, here, torch.where(step_ins, 2, 3)))
+        left = walking & (here == 2)
+        t = t - step_col.to(i64)
+        j = j - (step_col & (here == 0)).to(i64) - torch.where(left, torch.where(found, k, W), 0)
+        in_run = left & ~found
+    if not hist_t:
+        return _decode(torch.zeros((B, T), dtype=i32, device=dev),
+                       torch.zeros((B, T + 1), dtype=i32, device=dev))
+    hist_t, hist_j, kind = (torch.stack(h) for h in (hist_t, hist_j, hist_kind))
+    hist_pk = pk[row_q + (hist_j - 1).clamp(min=0)]
 
     # vote primitives: a column vote per diag/up move at row t-1, an
     # insertion where a run of left moves starts (in walk order); every
@@ -130,10 +173,9 @@ def votes_primitives_plain(cw, tlens, frags, qlens, wts):
     # slot
     fb = hist_pk & 3
     fw = hist_pk >> 2
-    diag_up = hist_mv <= 1
-    sym = torch.where(hist_mv == 0, fb, 4)
-    prev_mv = torch.cat([torch.full((1, B), 3, dtype=i64, device=dev), hist_mv[:-1]])
-    is_ins = (hist_mv == 2) & (prev_mv != 2)
+    diag_up = kind <= 1
+    sym = torch.where(kind == 0, fb, 4)
+    is_ins = kind == 2
     col_pack = torch.zeros(B * (T + 1), dtype=i32, device=dev)
     col_pack[rows * (T + 1) + torch.where(diag_up, hist_t - 1, T)] = torch.where(
         diag_up, 1 | (sym << 1) | (fw << 4), 0
@@ -185,14 +227,14 @@ def launch_plan(T: int, Q: int) -> tuple[str, int]:
     0xC000 and a warp's shared memory (max(2T + 97, 2 boxes) + 2Q + 4T + 2
     words; at Q 768, T <= 9,412) fits a block's; else
     ("votes_primitives_i32", 1), which keeps nothing of T or Q in shared
-    memory.  Raises ValueError below T, Q = 1 and past Q = NEG_MAX_Q."""
+    memory.  Raises ValueError below T, Q = 1 and past T + Q = I32_MAX_TQ,
+    where the int32 route's values would leave int32."""
     if T < 1 or Q < 1:
         raise ValueError(f"K2 takes T >= 1 and Q >= 1, got T={T}, Q={Q}")
-    if Q > NEG_MAX_Q:
+    if T + Q > I32_MAX_TQ:
         raise ValueError(
-            f"K2 takes Q up to {NEG_MAX_Q} on the card, got Q={Q}: from Q * |GAP| = 2^20 "
-            f"on, an end value can reach raven_tpu's sentinel NEG = {NEG}, where its "
-            f"best-row choice no longer follows the scores")
+            f"K2 takes T + Q up to {I32_MAX_TQ}, got T={T}, Q={Q}: its DP values and "
+            f"positions, within 4 (T + Q) + 1024 of 0, would leave int32")
     words = max(2 * T + 97, 2 * BOX_WORDS) + 2 * Q + 4 * T + 2
     if Q <= PAIR_MAX_Q and 4 * Q + 3 * T + 8 <= PAIR_BIAS and 4 * words <= SMEM_BYTES:
         return "votes_primitives", 2
@@ -228,12 +270,16 @@ def _fns():
         fn_i32.restype = ctypes.c_int
         fn_i32.argtypes = [ctypes.c_void_p] * 11 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int,
         ]
         _FNS = lib, words, fn, fn_i32
     return _FNS
 
 
-def _kernel(cw, tlens, frags, qlens, wts):
+def _kernel(cw, tlens, frags, qlens, wts, argmax: bool = False):
+    """K2 on the card; `argmax` picks the walk's start row as
+    votes_primitives_plain's does (the pair route's shapes never reach
+    NEG, where the two rules part, so only the int32 route takes it)."""
     global LAUNCHES
     from raven_tpu_torch import csrc
 
@@ -253,15 +299,16 @@ def _kernel(cw, tlens, frags, qlens, wts):
     ins = [x.data_ptr() for x in (cw, tlens, frags, qlens, wts)]
     if route == "votes_primitives":
         moves = torch.empty(words(B, T, Q), dtype=torch.int32, device=dev)
-        ptrs = [*ins, moves.data_ptr(), *outs]
+        ptrs, rule = [*ins, moves.data_ptr(), *outs], []
     else:  # the moves' and the row ends' scratch
         moves = torch.empty(i32_moves_words(B, T, Q), dtype=torch.int32, device=dev)
         bnd = torch.empty(B * (T + 1), dtype=torch.int32, device=dev)
         fn, ptrs = fn_i32, [*ins, moves.data_ptr(), bnd.data_ptr(), *outs]
+        rule = [int(argmax)]
     # the tensors' card is current for the launch and its shared-memory
     # limit, and the launch goes on that card's stream
     with torch.cuda.device(dev):
-        err = fn(*ptrs, B, T, Q, torch.cuda.current_stream(dev).cuda_stream, per_block)
+        err = fn(*ptrs, B, T, Q, torch.cuda.current_stream(dev).cuda_stream, per_block, *rule)
     csrc.check(lib, err, "window consensus kernel launch")
     LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
@@ -269,11 +316,16 @@ def _kernel(cw, tlens, frags, qlens, wts):
 
 
 def votes_primitives(cw, tlens, frags, qlens, wts):
-    """K2 on a CUDA tensor, its plain version on a CPU tensor."""
+    """K2 on a CUDA tensor, its plain version on a CPU tensor, with the
+    Pallas kernel's start row (raven_tpu's pallas_votes_primitives)."""
+    return _votes(cw, tlens, frags, qlens, wts, False)
+
+
+def _votes(cw, tlens, frags, qlens, wts, argmax: bool):
     if cw.device.type == "cuda":
-        return _kernel(cw, tlens, frags, qlens, wts)
+        return _kernel(cw, tlens, frags, qlens, wts, argmax)
     if cw.device.type == "cpu":
-        return votes_primitives_plain(cw, tlens, frags, qlens, wts)
+        return votes_primitives_plain(cw, tlens, frags, qlens, wts, argmax)
     raise ValueError(f"no window consensus kernel for device {cw.device}")
 
 
@@ -325,10 +377,25 @@ def votes_from_primitives(col_sym, col_w, ins_b, ins_w, win_idx, cons_runs, T, N
 def fused_votes(cons_arr, cons_lens, cons_runs, frags, q_lens, wts, win_idx, T, Q, NWIN):
     """Vote tables of one fragment chunk: the drop-in for
     raven_tpu.ops.consensus_device.fused_votes_kernel(band=0), through K2
-    on the card (raven_tpu's fused_votes_pallas).  cons_arr [NWIN, T] (pad
-    < 0), cons_lens [NWIN], cons_runs [NWIN, T+1, 4], frags / wts [B, Q],
-    q_lens, win_idx [B], all int32 on one device.  Returns (base_votes
-    [NWIN, T, 5], ins_votes [NWIN, T+1, 4], cover [NWIN, T]) int32."""
+    on the card with that function's start row (jnp.argmax over the end
+    values).  cons_arr [NWIN, T] (pad < 0), cons_lens [NWIN], cons_runs
+    [NWIN, T+1, 4], frags / wts [B, Q], q_lens, win_idx [B], all int32 on
+    one device.  Returns (base_votes [NWIN, T, 5], ins_votes [NWIN, T+1,
+    4], cover [NWIN, T]) int32."""
+    return _fused(cons_arr, cons_lens, cons_runs, frags, q_lens, wts, win_idx, T, Q, NWIN, True)
+
+
+def fused_votes_pallas(cons_arr, cons_lens, cons_runs, frags, q_lens, wts, win_idx, T, Q,
+                       NWIN):
+    """fused_votes with the Pallas kernel's start row: the drop-in for
+    raven_tpu.ops.pallas_consensus.fused_votes_pallas, which raven_tpu's
+    engine takes with RAVEN_TPU_PALLAS_CONSENSUS=1 (the port's
+    consensus_device.PALLAS_CONSENSUS)."""
+    return _fused(cons_arr, cons_lens, cons_runs, frags, q_lens, wts, win_idx, T, Q, NWIN,
+                  False)
+
+
+def _fused(cons_arr, cons_lens, cons_runs, frags, q_lens, wts, win_idx, T, Q, NWIN, argmax):
     if cons_arr.shape != (NWIN, T) or frags.shape[1] != Q:
         raise ValueError(
             f"cons_arr {tuple(cons_arr.shape)} / frags {tuple(frags.shape)} do "
@@ -337,5 +404,5 @@ def fused_votes(cons_arr, cons_lens, cons_runs, frags, q_lens, wts, win_idx, T, 
     wi = win_idx.to(torch.int64)
     cw = cons_arr[wi].contiguous()
     cwl = cons_lens[wi].contiguous()
-    col_sym, col_w, ins_b, ins_w = votes_primitives(cw, cwl, frags, q_lens, wts)
+    col_sym, col_w, ins_b, ins_w = _votes(cw, cwl, frags, q_lens, wts, argmax)
     return votes_from_primitives(col_sym, col_w, ins_b, ins_w, win_idx, cons_runs, T, NWIN)

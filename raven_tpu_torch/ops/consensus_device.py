@@ -26,8 +26,12 @@ import torch
 
 from raven_tpu_torch.device import resolve_device
 from raven_tpu_torch.ops.banded_cuda import fused_votes_banded
-from raven_tpu_torch.ops.consensus_cuda import fused_votes
+from raven_tpu_torch.ops.consensus_cuda import fused_votes, fused_votes_pallas
 from raven_tpu_torch.parallel.mesh import local_blocks, sum_on_first
+
+# raven_tpu's RAVEN_TPU_PALLAS_CONSENSUS=1: without a mesh, every call takes
+# fused_votes_pallas (the Pallas kernel's start row), banded or not
+PALLAS_CONSENSUS = False
 
 
 def _pow2_of(v: int, lo: int = 128) -> int:
@@ -64,7 +68,10 @@ def device_window_consensus(
     on the first device, summed there (raven_tpu's _votes_step_sharded:
     integer sums, so the consensus is the one device's, bit for bit).
     Across processes each rank takes its own devices' blocks and the
-    local sums are all-reduced (mesh.py's sum_on_first).
+    local sums are all-reduced (mesh.py's sum_on_first).  With
+    PALLAS_CONSENSUS and no mesh, every chunk goes through
+    fused_votes_pallas instead, banded or not, as raven_tpu's engine does
+    with RAVEN_TPU_PALLAS_CONSENSUS=1.
     """
     devices = mesh.devices if mesh is not None else (resolve_device(device),)
     home = mesh.first if mesh is not None else devices[0]
@@ -97,6 +104,7 @@ def device_window_consensus(
         for dev, rows in blocks
     ]
 
+    pallas = PALLAS_CONSENSUS and mesh is None
     for _ in range(iterations):
         cons_arr, cons_lens = pad_consensus(cons, t_pad, NWIN)
         cons_runs = homopolymer_run_map(cons_arr, cons_lens)
@@ -109,14 +117,20 @@ def device_window_consensus(
             cons_dev, clens_dev, cruns_dev = (
                 torch.from_numpy(a).to(dev) for a in (cons_arr, cons_lens, cons_runs)
             )
-            if banded:
+            if banded and not pallas:
                 r0_dev, r1_dev = (torch.from_numpy(a[rows]).to(dev) for a in (r0, r1))
             bv = torch.zeros((NWIN, t_pad, 5), dtype=torch.int32, device=dev)
             iv = torch.zeros((NWIN, t_pad + 1, 4), dtype=torch.int32, device=dev)
             cv = torch.zeros((NWIN, t_pad), dtype=torch.int32, device=dev)
             for c0 in range(0, rows.stop - rows.start, chunk):
                 sl = slice(c0, c0 + chunk)
-                if banded:
+                if pallas:
+                    b_, i_, c_ = fused_votes_pallas(
+                        cons_dev, clens_dev, cruns_dev, frags_dev[sl],
+                        qlens_dev[sl], wts_dev[sl], winof_dev[sl], t_pad, q_pad,
+                        NWIN,
+                    )
+                elif banded:
                     b_, i_, c_ = fused_votes_banded(
                         cons_dev, clens_dev, cruns_dev, frags_dev[sl],
                         qlens_dev[sl], wts_dev[sl], winof_dev[sl], r0_dev[sl],
