@@ -8,8 +8,8 @@ of the repository) and the CUDA toolkit's nvcc.  Phases, each fatal on
 failure:
 
   1. the card, the versions, the builds (the host C++ library, then K1,
-     K2, K3, K4, K9 and K10 with nvcc for sm_90a, one nvcc per source,
-     started together);
+     K2, K3, K4, K9, K10 and K12 with nvcc for sm_90a, one nvcc per
+     source, started together);
   2. kernel K1 (segment sketch, csrc/sketch.cu) against its plain torch
      version on the card, bit for bit, at (k, w) = (15, 5) and (11, 3), on
      a chunk of real segment rows [8192, 2048] and a ragged row count, and
@@ -57,15 +57,24 @@ failure:
   4. the main path: `raven_tpu_torch.cli.main([reads, "-p", "0", ...])` on
      a 1 Mb genome at 30x with indels, which must give one contig of at
      least 0.97 of the genome with every overlap index built by K1; then
-     again on a 1 Mb genome with a repeat family, whose junction component
-     (512 nodes or more) must send the layout n-body to the card;
+     again on a 1 Mb genome with a repeat family, whose junction components
+     (512 nodes or more) must send the layout n-body to the card (K12
+     launched; each component's points and links are kept for phase 5);
  4b. the Python API (raven_tpu_torch.api) on the first run's reads: its
      sub-stages on the card must give the GFA of `cli.main([reads, "-p",
      "0", "-F", gfa])`, byte for byte, and construct_graph(checkpoints=True),
      a load of the checkpoint and assemble_graph the sub-stages' unitigs;
-  5. the layout n-body against the float64 host loop on the card, and
+  5. kernel K12 (the layout n-body, csrc/layout.cu) against its plain
+     torch version on the card, bit for bit, at 600, 512 and 1,500 points
+     x 100 iterations and on each of phase 4's repeat components, and
+     against the plain version on the CPU at 600 points (whose bits the
+     CPU tests hold to raven_tpu's); the n-body against the float64 host
+     loop after 3 iterations; K12's time a call (CUDA events, and device
+     time from torch.profiler) beside its bound and the plain version's at
+     600 and 1,500 points, and the 100-iteration n-body's host wall at 600
+     points (the measure earlier trees logged for their torch-ops n-body);
      through the assemble stage remove_long_edges on a 601-node junction
-     component built by hand;
+     component built by hand, K12 launched;
   6. kernel K2 (window-consensus votes, csrc/consensus.cu) against its
      plain torch version on the card, bit for bit, on the first chunk of
      bench_polish.py's window bank (512 windows x 30 fragments) laid out
@@ -185,9 +194,10 @@ failure:
      old limit may launch before this phase (the CLI paths take the first
      routes);
  14. a `kernels` JSON line (K3, K4, K9 and K10 with the widths they ran
-     at; the routes past the old limits, K3's global one among them, as
-     kernels of their own, their launches phase 13(d)'s engine calls'), the
-     card's name and power limit,
+     at; K12 with its launches on phase 4's repeat run; the routes past
+     the old limits, K3's global one among them, as kernels of their own,
+     their launches phase 13(d)'s engine calls'), the card's name and power
+     limit,
      and the last line {"ok": true, "device": {...}}.
 """
 
@@ -241,6 +251,16 @@ K4_INSTR_PER_ROW = 6
 # walks run side by side, so a launch takes at least its longest walk.
 K4_CHAIN_CYCLES = 9 * 4 + 30
 SM_CLOCK_HZ = 1.98e9
+# H100 SXM: 67 TFLOP/s in float32 outside the tensor cores, an FMA two
+# (NVIDIA data sheet).  K12's float32 operations, an FMA two and a
+# division or square root one: 11 a pair of points (two subtractions,
+# three products, one FMA, a maximum, a division, two adds), 12 a link
+# (two subtractions, two products and an add for the squared distance, a
+# root, a maximum, a division, two products, two adds), 10 a row's update
+# (a product and an FMA for the squared length, a root, a compare, a
+# division, two FMAs) and 2 a partial summed into its row (x and y)
+FP32_FLOPS_PER_S = 67e12
+K12_FLOPS_PAIR, K12_FLOPS_LINK, K12_FLOPS_ROW = 11, 12, 10
 # K9's recurrence is K2's (scores 3/-5/-4, diag and up, the left closure,
 # move bits), so it needs at least K2's 4 integer instructions per band cell
 # on the 16-bit pair instructions; the two previous-row values it regathers
@@ -270,6 +290,9 @@ BAND_WIDTHS = (128, 384)
 BAND_SWEEP = tuple(range(16, 513, 16))
 BANDED_Q_PADS = (100, 128, 200)
 ED_RATE_CEILING = 0.0005  # tests/test_synthetic_golden.py
+# raven_tpu's unitig lengths on the repeat genome's checkpoint (phase 4's
+# second reads), which tests/test_torch_layout_n_body.py holds the port to
+RAVEN_TPU_REPEAT_UNITIGS = (259191, 185530, 385592, 137302, 47696)
 
 
 class SmokeFailure(Exception):
@@ -1112,7 +1135,7 @@ def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> di
     from raven_tpu_torch.graph import layout
     from raven_tpu_torch.io.readset import encode
     from raven_tpu_torch.ops import band_cuda, banded_cuda, consensus_cuda, dp_device
-    from raven_tpu_torch.ops import sketch_cuda
+    from raven_tpu_torch.ops import layout_cuda, sketch_cuda
     from raven_tpu_torch.overlap.engine import MinimizerIndex
 
     path, genome, reads = write_reads(work_dir, genome_size, repeat)
@@ -1133,6 +1156,7 @@ def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> di
            "k4_launches": band_cuda.LAUNCHES["mask_walk_votes"],
            "k9_launches": banded_cuda.LAUNCHES["nw_moves_banded"],
            "k10_launches": banded_cuda.LAUNCHES["traceback_banded"],
+           "k12_launches": layout_cuda.LAUNCHES["n_body"],
            "dp_runs": dp_device.DEVICE_RUNS,
            "declines": MinimizerIndex.host_declines, "wall_s": wall, **timings}
     require(rc == 0, f"cli exited {rc}")
@@ -1151,7 +1175,8 @@ def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> di
         f"{timings['construct_s']:.3f} s, assemble {timings['assemble_s']:.3f} "
         f"s, polish {timings['polish_s']:.3f} s, wall {wall:.3f} s; contigs "
         f"{len(seqs)} {run['lengths']}; K1 launches {run['launches']}; layout "
-        f"n-body runs {run['layout_runs']}; host declines {run['declines']}"
+        f"n-body runs {run['layout_runs']} (K12 launches {run['k12_launches']}); host "
+        f"declines {run['declines']}"
     )
     require(run["launches"] > 0, "the cli run launched K1 no time")
     require(run["declines"] == 0, f"{run['declines']} device-path declines")
@@ -1163,7 +1188,8 @@ def phase_cli(device, work_dir, genome_size=1_000_000):
     into one contig; and on one with a repeat family (8 copies of an 11 kb
     element, 2% apart, longer than most reads), whose collapsed copies
     leave a junction component of 512 nodes or more, so the assemble
-    stage's layout runs the n-body on the card.  Such repeats cannot be
+    stage's layout runs the n-body (K12) on the card; its inputs (points
+    and links) are recorded for phase 5.  Such repeats cannot be
     resolved from these reads, so that run must give at most 9 contigs
     that together hold 0.97-1.1 x the genome."""
     main = cli_run(device, work_dir, genome_size)
@@ -1171,9 +1197,29 @@ def phase_cli(device, work_dir, genome_size=1_000_000):
     require(len(lengths) == 1, f"expected 1 contig, got {len(lengths)}")
     require(lengths[0] >= 0.97 * genome_size,
             f"contig {lengths[0]} < 0.97 x {genome_size}")
-    rep = cli_run(device, work_dir, genome_size, repeat=(11_000, 8, 0.02))
-    require(rep["layout_runs"] > 0,
-            "the layout n-body did not run on the card in the cli run")
+    from raven_tpu_torch.graph import layout
+
+    component = layout._layout_component
+    n_body_inputs = []
+
+    def record(points, edges_a, edges_b, *args, **kwargs):
+        if len(points) >= layout._DEVICE_MIN_NODES:
+            n_body_inputs.append((points.copy(), edges_a.copy(), edges_b.copy()))
+        return component(points, edges_a, edges_b, *args, **kwargs)
+
+    layout._layout_component = record
+    layout.reset_seed()  # the layout's start points of a fresh CLI process
+    try:
+        rep = cli_run(device, work_dir, genome_size, repeat=(11_000, 8, 0.02))
+    finally:
+        layout._layout_component = component
+    rep["n_body_inputs"] = n_body_inputs
+    log(f"repeat run's contigs {rep['lengths']}; raven_tpu's unitigs of this genome's "
+        f"checkpoint (tests/test_torch_layout_n_body.py, on the CPU) "
+        f"{list(RAVEN_TPU_REPEAT_UNITIGS)}: "
+        f"{'the same' if tuple(rep['lengths']) == RAVEN_TPU_REPEAT_UNITIGS else 'other'}")
+    require(rep["layout_runs"] > 0 and rep["k12_launches"] > 0,
+            "the layout n-body (K12) did not run on the card in the cli run")
     total = sum(rep["lengths"])
     require(len(rep["lengths"]) <= 9, f"{len(rep['lengths'])} contigs")
     require(0.97 * genome_size <= total <= 1.1 * genome_size,
@@ -1259,35 +1305,155 @@ def phase_api(device, work_dir, genome_size=1_000_000):
     return {"wall_s": wall, "launches": launches, "checkpoint_wall_s": ck_wall}
 
 
-def phase_layout(device):
+def n_body_bound(n: int, links: int, slots: int, iters: int) -> tuple[float, str, dict]:
+    """Least time for K12's work on these inputs: the larger of the bytes
+    each read or written once (points float32 [n, 2] in and out, the
+    links int32 [slots, n]) over HBM bandwidth, and its float32 operations
+    (K12_FLOPS_* a pair of points, a link and a row, 2 a partial of the row
+    sums' tree) over the card's float32 rate."""
+    W = -(-n // 32)
+    partials = W
+    while W > 32:
+        W = -(-W // 32)
+        partials += W
+    nbytes = 8 * n + 4 * slots * n + 8 * n
+    flops = iters * (n * (n - 1) * K12_FLOPS_PAIR + links * K12_FLOPS_LINK
+                     + n * K12_FLOPS_ROW + 2 * n * partials)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, {"bytes": nbytes, "fp32_flops": flops,
+                                     "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
+def device_ms_total(fn, kernel: str, runs: int = 5, warmup: int = 1):
+    """Median device milliseconds a call of fn() spends in the launches of
+    `kernel` (a substring of their names), summed over the call's launches,
+    from a torch.profiler trace (taken again up to three in all when a
+    trace holds no device event of the kernel); None when none does."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    import importlib
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        calls = []
+        for _ in range(runs):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            calls.append(sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                             if e.device_type == DeviceType.CUDA and kernel in e.name))
+        if all(calls):
+            return statistics.median(calls)
+    return None
 
-    from raven_tpu_torch.graph import graph as gmod
-    from raven_tpu_torch.graph import layout
 
-    # the graph package exports a function named assemble over the module
-    asm = importlib.import_module("raven_tpu_torch.graph.assemble")
-    n = 600
-    rng = np.random.default_rng(3)
+def n_body_case(n: int, seed: int):
+    """A component of n points in the unit square, a chain and 200 random
+    links, as the layout tests build it."""
+    rng = np.random.default_rng(seed)
     pts = rng.random((n, 2))
     ea = np.concatenate([np.arange(n - 1), rng.integers(0, n, 200)])
     eb = np.concatenate([np.arange(1, n), rng.integers(0, n, 200)])
+    return pts, ea, eb
+
+
+def phase_layout(device, smi: str, repeat_inputs):
+    """Phase 5: K12 against its plain version, the n-body against the
+    float64 host loop, and remove_long_edges through K12 (see the module
+    docstring)."""
+    import importlib
+
+    import torch
+
+    from raven_tpu_torch.graph import graph as gmod
+    from raven_tpu_torch.graph import layout
+    from raven_tpu_torch.ops import layout_cuda
+
+    # the graph package exports a function named assemble over the module
+    asm = importlib.import_module("raven_tpu_torch.graph.assemble")
+    iters = 100
+
+    def k12(pts, ea, eb, it=iters):
+        return layout_cuda.n_body_kernel(
+            torch.as_tensor(pts, dtype=torch.float32, device=device), ea, eb, it)
+
+    def plain(pts, ea, eb, it=iters, dev=device):
+        return layout_cuda.n_body_plain(
+            torch.as_tensor(pts, dtype=torch.float32, device=dev), ea, eb, it)
+
+    def held(tag, got, want):
+        got, want = got.cpu(), want.cpu()
+        require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                f"K12 {tag}: shape {tuple(got.shape)} or non-finite values")
+        differ = int((got != want).sum())
+        require(differ == 0, f"K12 {tag}: {differ} of {got.numel()} coordinates differ "
+                             "from its plain version")
+        return float((got - want).abs().max())
+
+    cases, errs = {}, []
+    for n in (600, 512, 1500):
+        pts, ea, eb = n_body_case(n, 3)
+        got = k12(pts, ea, eb)
+        torch.cuda.synchronize()
+        want, plain_ms = timed_plain(lambda: plain(pts, ea, eb))
+        errs.append(held(f"at {n} points x {iters} iterations", got, want))
+        cases[n] = {"plain_ms": plain_ms, "links": len(ea)}
+    # the card's bits are the CPU's, which the CPU tests hold to raven_tpu's
+    pts, ea, eb = n_body_case(600, 3)
+    t0 = time.perf_counter()
+    cpu = plain(pts, ea, eb, dev="cpu")
+    cpu_s = time.perf_counter() - t0
+    errs.append(held("at 600 points against the plain version on the CPU",
+                     k12(pts, ea, eb), cpu))
+    for i, (pts, ea, eb) in enumerate(repeat_inputs):
+        errs.append(held(f"on phase 4's repeat component {i} ({len(pts)} points)",
+                         k12(pts, ea, eb), plain(pts, ea, eb)))
+    require(len(repeat_inputs) > 0, "phase 4's repeat run gave the n-body no component")
+    log(f"K12 bit-equal to its plain version on the card at 600, 512 and 1500 points x "
+        f"{iters} iterations, to the plain version on the CPU at 600 ({cpu_s:.3f} s "
+        f"there), and on phase 4's {len(repeat_inputs)} repeat components "
+        f"({sorted({len(p) for p, _, _ in repeat_inputs})} points)")
+
     # float32 on the card against the float64 host loop: the n-body
     # amplifies rounding ~2.5x per iteration, so compare after 3, where
     # the gap is ~1e-6 on coordinates of order 1
+    pts, ea, eb = n_body_case(600, 3)
     dev = layout._layout_component_device(pts.copy(), ea, eb, 3, device)
     host = layout._layout_component_host(pts.copy(), ea, eb, 3)
     err = float(np.abs(dev - host).max())
-    log(f"layout n-body vs host loop (3 iterations, n={n}): max abs diff {err:.3g}")
+    log(f"layout n-body vs host loop (3 iterations, n=600): max abs diff {err:.3g}")
     require(err < 1e-4, "device n-body disagrees with the host loop")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    layout._layout_component_device(pts.copy(), ea, eb, 100, device)
+    layout._layout_component_device(pts.copy(), ea, eb, iters, device)
     t_nbody = time.perf_counter() - t0
 
+    for n in (600, 1500):
+        pts, ea, eb = n_body_case(n, 3)
+        p32 = torch.as_tensor(pts, dtype=torch.float32, device=device)
+        slots = layout_cuda.attraction_slots(n, ea, eb).shape[1]
+        bound, by, detail = n_body_bound(n, len(ea), slots, iters)
+        fn = lambda: layout_cuda.n_body_kernel(p32, ea, eb, iters)  # noqa: E731
+        cases[n].update({
+            "ms": cuda_ms(fn, runs=10, warmup=2),
+            "device_ms": device_ms_total(fn, "n_body"),
+            "bound_ms": bound, "bound_by": by, **detail,
+            "shape": [n, 2], "slots": slots, "iterations": iters,
+        })
+        c = cases[n]
+        log(f"K12 at {n} points ({c['links']} links, {slots} slots) x {iters} iterations "
+            f"on {smi}: {c['ms']:.4f} ms a call, device {fmt_ms(c['device_ms'])}, bound "
+            f"{bound:.4f} ms ({by}: {detail['fp32_flops']} float32 flops), "
+            f"{bound / c['ms']:.2%} of it; plain version on the card {c['plain_ms']:.1f} ms; "
+            f"{2 * iters} launches a call")
+
     g = gmod.Graph()
+    n = 600
+    rng = np.random.default_rng(3)
     nodes = [
         g.new_node_pair(f"n{i}", rng.integers(0, 4, 64).astype(np.uint8))[0]
         for i in range(n)
@@ -1298,15 +1464,18 @@ def phase_layout(device):
     for i in range(0, n - 1, 40):
         g.new_edge_pair(nodes[i], hub, 32, 32)
     layout.DEVICE_RUNS = 0
+    zero_counts()
     removed = asm.remove_long_edges(g, num_rounds=1, device=device)
-    runs = layout.DEVICE_RUNS
+    runs, launches = layout.DEVICE_RUNS, read_counts()["K12"]
     log(
         f"remove_long_edges on a {n + 1}-node junction component: "
-        f"{removed} long edges, layout n-body runs on the card {runs}, "
-        f"100-iteration n-body {t_nbody:.3f} s"
+        f"{removed} long edges, layout n-body runs on the card {runs}, K12 launches "
+        f"{launches}; 100-iteration n-body at 600 points (host wall, the transfers "
+        f"included) {t_nbody:.3f} s"
     )
-    require(runs > 0, "the layout n-body did not run on the card")
-    return {"layout_runs": runs, "nbody_100_s": t_nbody}
+    require(runs > 0 and launches > 0, "the layout n-body did not run K12 on the card")
+    return {"layout_runs": runs, "launches": launches, "nbody_100_s": t_nbody,
+            "max_abs_err": max(errs), "cases": cases, "cpu_plain_s": cpu_s}
 
 
 def consensus_chunk(n_rows: int = 2048, t_pad: int = 640, q_pad: int = 768, windows=None):
@@ -3111,23 +3280,27 @@ def phase_polish_banded(device, work_dir, draft):
 
 # ------------------------------------------------------ the end of the port
 def zero_counts() -> None:
-    """Every kernel's launch count (K1, K2, K3/K4, K9/K10) to 0."""
-    from raven_tpu_torch.ops import band_cuda, banded_cuda, consensus_cuda, sketch_cuda
+    """Every kernel's launch count (K1, K2, K3/K4, K9/K10, K12) to 0."""
+    from raven_tpu_torch.ops import band_cuda, banded_cuda, consensus_cuda, layout_cuda
+    from raven_tpu_torch.ops import sketch_cuda
 
     sketch_cuda.LAUNCHES = 0
     consensus_cuda.LAUNCHES = 0
     band_cuda.LAUNCHES.update(dict.fromkeys(band_cuda.LAUNCHES, 0))
     banded_cuda.LAUNCHES.update(dict.fromkeys(banded_cuda.LAUNCHES, 0))
+    layout_cuda.LAUNCHES.update(dict.fromkeys(layout_cuda.LAUNCHES, 0))
 
 
 def read_counts() -> dict:
-    from raven_tpu_torch.ops import band_cuda, banded_cuda, consensus_cuda, sketch_cuda
+    from raven_tpu_torch.ops import band_cuda, banded_cuda, consensus_cuda, layout_cuda
+    from raven_tpu_torch.ops import sketch_cuda
 
     return {"K1": sketch_cuda.LAUNCHES, "K2": consensus_cuda.LAUNCHES,
             "K3": band_cuda.LAUNCHES["band_forward"],
             "K4": band_cuda.LAUNCHES["mask_walk_votes"],
             "K9": banded_cuda.LAUNCHES["nw_moves_banded"],
-            "K10": banded_cuda.LAUNCHES["traceback_banded"]}
+            "K10": banded_cuda.LAUNCHES["traceback_banded"],
+            "K12": layout_cuda.LAUNCHES["n_body"]}
 
 
 def timed(fn):
@@ -3339,8 +3512,8 @@ def run() -> dict:
         cwd=REPO,
     )
     try:
-        csrc.build_all(["sketch", "consensus", "band", "banded"])
-        for name in ("sketch", "consensus", "band", "banded"):
+        csrc.build_all(["sketch", "consensus", "band", "banded", "layout"])
+        for name in ("sketch", "consensus", "band", "banded", "layout"):
             log(f"nvcc {name}.cu: done {csrc.BUILD_SECONDS.get(name, 0.0):.2f} s "
                 f"after the builds started (0 when build/cuda/lib{name}.so was "
                 "up to date)")
@@ -3363,7 +3536,7 @@ def run() -> dict:
     api_run = phase_api(device, work)
     mp = phase_multiprocess(work, reads115, ov, shd)
     dsk = phase_device_sketch(device, mp["reads"])
-    lay = phase_layout(device)
+    lay = phase_layout(device, smi, repeat_path["n_body_inputs"])
     k2 = phase_votes(device)
     k3, k4 = phase_band(device)
     k9, k10 = phase_banded(device, k2["ms"])
@@ -3516,6 +3689,30 @@ def run() -> dict:
         "shape": k10["shape"],
         "widths": widths(wid["banded"], "K10"),
     }]
+    k12 = lay["cases"][600]
+    kernels.append({
+        "name": "layout_n_body",
+        "route": "cuda",
+        "source": "raven_tpu_torch/csrc/layout.cu",
+        "replaces": "raven_tpu/graph/layout.py:89",
+        "launches": repeat_path["k12_launches"],
+        "launches_repeat_cli": repeat_path["k12_launches"],
+        "launches_remove_long_edges": lay["launches"],
+        "n_body_runs_repeat_cli": repeat_path["layout_runs"],
+        "equal": True,
+        "max_abs_err": lay["max_abs_err"],
+        "ms": k12["ms"],
+        "plain_ms": k12["plain_ms"],
+        "device_ms": k12["device_ms"],
+        "bound_ms": k12["bound_ms"],
+        "bound_by": k12["bound_by"],
+        "library_ms": None,
+        "shape": k12["shape"],
+        "iterations": k12["iterations"],
+        "at_1500": {key: lay["cases"][1500][key] for key in (
+            "ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "shape")},
+        "nbody_100_s": lay["nbody_100_s"],
+    })
     # the routes past the old limits, timed at phase 13(d)'s full batch (K9's
     # global route at q_pad 65,536); their launches are 13(d)'s engine calls'
     fb = past["full_batch"]["kernels"]

@@ -1,16 +1,16 @@
 """Port force-directed layout (raven_tpu_torch.graph.layout) vs raven_tpu's
 on components of at least 512 nodes, where both run their device n-body in
-float32 (JAX runs with x64 off).  Positions agree within POS_ATOL after a
-few iterations (tests/test_torch_layout_n_body.py); at the full 100
-iterations the layout-driven long-edge removal makes identical decisions.
+float32 (JAX runs with x64 off) and the port rounds as raven_tpu's jitted
+loop does, in its order: positions agree bit for bit
+(tests/test_torch_layout_n_body.py), and the layout-driven long-edge
+removal makes identical decisions.
 
 The n-body is chaotic: a last-bit difference in a float32 sum grows about
 2.5x per iteration (measured on the 600-node component below: 1e-7 after
 one iteration, 4e-6 after five, 0.06 after twenty, O(1) after a hundred,
-the same against the float64 host loop), so positions are compared after
-a few iterations, and the 100-iteration check uses a component whose
-long/short calls are clear-cut rather than within float noise of the 2x
-ratio."""
+the same against the float64 host loop), so the 100-iteration check here
+also uses a component whose long/short calls are clear-cut rather than
+within float noise of the 2x ratio."""
 
 import importlib
 
@@ -71,8 +71,8 @@ def test_repeat_genome_checkpoint_assembles_the_same(repeat_checkpoint, monkeypa
     """The repeat genome's checkpoint through both packages' assemble with
     every component on the layout's float64 host loop (the n-body's
     threshold raised in both): the same edges marked in every long-edge
-    round and the same unitigs.  Through the n-body the two packages' calls
-    part (tests/test_torch_layout_n_body.py)."""
+    round and the same unitigs.  Through the n-body they agree as well
+    (tests/test_torch_layout_n_body.py)."""
     monkeypatch.setattr(jlayout, "_DEVICE_MIN_NODES", 1 << 30)
     monkeypatch.setattr(tlayout, "_DEVICE_MIN_NODES", 1 << 30)
     runs = tlayout.DEVICE_RUNS

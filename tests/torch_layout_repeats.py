@@ -14,11 +14,6 @@ import torch
 from raven_tpu.graph import layout as jlayout
 from raven_tpu_torch.graph import layout as tlayout
 
-# float32 sums over ~600 repulsion terms in another order differ in the
-# last bits (~1e-7 relative); a few cooling iterations keep that well
-# under 1e-4 on coordinates of order 1
-POS_ATOL = 1e-4
-
 # the graph packages export a function named assemble over the module
 jassemble = importlib.import_module("raven_tpu.graph.assemble")
 tassemble = importlib.import_module("raven_tpu_torch.graph.assemble")
