@@ -59,22 +59,27 @@ failure:
      least 0.97 of the genome with every overlap index built by K1; then
      again on a 1 Mb genome with a repeat family, whose junction components
      (512 nodes or more) must send the layout n-body to the card (K12
-     launched; each component's points and links are kept for phase 5);
+     launched once a run; each component's points and links are kept for
+     phase 5);
  4b. the Python API (raven_tpu_torch.api) on the first run's reads: its
      sub-stages on the card must give the GFA of `cli.main([reads, "-p",
      "0", "-F", gfa])`, byte for byte, and construct_graph(checkpoints=True),
      a load of the checkpoint and assemble_graph the sub-stages' unitigs;
-  5. kernel K12 (the layout n-body, csrc/layout.cu) against its plain
-     torch version on the card, bit for bit, at 600, 512 and 1,500 points
-     x 100 iterations and on each of phase 4's repeat components, and
-     against the plain version on the CPU at 600 points (whose bits the
-     CPU tests hold to raven_tpu's); the n-body against the float64 host
-     loop after 3 iterations; K12's time a call (CUDA events, and device
-     time from torch.profiler) beside its bound and the plain version's at
-     600 and 1,500 points, and the 100-iteration n-body's host wall at 600
-     points (the measure earlier trees logged for their torch-ops n-body);
-     through the assemble stage remove_long_edges on a 601-node junction
-     component built by hand, K12 launched;
+  5. kernel K12 (the layout n-body, csrc/layout.cu, every iteration of a
+     call in one launch) against its plain torch version on the card, bit
+     for bit, at 1, 2, 512, 600, 1,024, 1,025 and 1,500 points x 100
+     iterations, at as many points as the card holds blocks and one more x
+     5, at 32,769 x 3 and 40,000 x 1, on 64 sampled rows of 2^20 + 32 and
+     of 32^4 + 32^3 + 64 points x 1 (four levels of windows; against the
+     plain rules over those rows alone) and on each of phase 4's repeat
+     components, one launch a call, each case's blocks logged; against the
+     plain version on the CPU at 600 points (whose bits the CPU tests hold
+     to raven_tpu's); the n-body against the float64 host loop after 3
+     iterations; K12's time a call (CUDA events, and device time from
+     torch.profiler) beside its bound and the plain version's at 600 and
+     1,500 points, and the 100-iteration n-body's host wall at 600 points;
+     through the assemble stage remove_long_edges on a 601-node
+     junction component built by hand, one K12 launch a run;
   6. kernel K2 (window-consensus votes, csrc/consensus.cu) against its
      plain torch version on the card, bit for bit, on the first chunk of
      bench_polish.py's window bank (512 windows x 30 fragments) laid out
@@ -261,6 +266,11 @@ SM_CLOCK_HZ = 1.98e9
 # division, two FMAs) and 2 a partial summed into its row (x and y)
 FP32_FLOPS_PER_S = 67e12
 K12_FLOPS_PAIR, K12_FLOPS_LINK, K12_FLOPS_ROW = 11, 12, 10
+K12_CASES = ((1, 100), (2, 100), (512, 100), (600, 100), (1024, 100), (1025, 100),
+             (1500, 100), (32769, 3), (40000, 1))
+# four levels of windows, 64 rows of each held: at 32^4 + 32^3 + 64 the top
+# level's second group holds two sums, so a tree cut to three levels differs
+K12_SAMPLED = ((1 << 20) + 32, 32 ** 4 + 32 ** 3 + 64)
 # K9's recurrence is K2's (scores 3/-5/-4, diag and up, the left closure,
 # move bits), so it needs at least K2's 4 integer instructions per band cell
 # on the 16-bit pair instructions; the two previous-row values it regathers
@@ -1218,8 +1228,9 @@ def phase_cli(device, work_dir, genome_size=1_000_000):
         f"checkpoint (tests/test_torch_layout_n_body.py, on the CPU) "
         f"{list(RAVEN_TPU_REPEAT_UNITIGS)}: "
         f"{'the same' if tuple(rep['lengths']) == RAVEN_TPU_REPEAT_UNITIGS else 'other'}")
-    require(rep["layout_runs"] > 0 and rep["k12_launches"] > 0,
-            "the layout n-body (K12) did not run on the card in the cli run")
+    require(rep["layout_runs"] > 0 and rep["k12_launches"] == rep["layout_runs"],
+            f"the repeat cli run: {rep['layout_runs']} n-body runs on the card, "
+            f"{rep['k12_launches']} K12 launches (one a run)")
     total = sum(rep["lengths"])
     require(len(rep["lengths"]) <= 9, f"{len(rep['lengths'])} contigs")
     require(0.97 * genome_size <= total <= 1.1 * genome_size,
@@ -1326,31 +1337,6 @@ def n_body_bound(n: int, links: int, slots: int, iters: int) -> tuple[float, str
                                      "bytes_ms": t_bytes, "ops_ms": t_ops}
 
 
-def device_ms_total(fn, kernel: str, runs: int = 5, warmup: int = 1):
-    """Median device milliseconds a call of fn() spends in the launches of
-    `kernel` (a substring of their names), summed over the call's launches,
-    from a torch.profiler trace (taken again up to three in all when a
-    trace holds no device event of the kernel); None when none does."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        calls = []
-        for _ in range(runs):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            calls.append(sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                             if e.device_type == DeviceType.CUDA and kernel in e.name))
-        if all(calls):
-            return statistics.median(calls)
-    return None
-
-
 def n_body_case(n: int, seed: int):
     """A component of n points in the unit square, a chain and 200 random
     links, as the layout tests build it."""
@@ -1376,10 +1362,17 @@ def phase_layout(device, smi: str, repeat_inputs):
     # the graph package exports a function named assemble over the module
     asm = importlib.import_module("raven_tpu_torch.graph.assemble")
     iters = 100
+    card = layout_cuda.card_info(device)
+    blocks = card["sms"] * card["per_sm"]
+    log(f"K12 on {smi}: {card}; one cooperative grid of {blocks} blocks, at most one a row")
 
     def k12(pts, ea, eb, it=iters):
-        return layout_cuda.n_body_kernel(
+        before = layout_cuda.LAUNCHES["n_body"]
+        out = layout_cuda.n_body_kernel(
             torch.as_tensor(pts, dtype=torch.float32, device=device), ea, eb, it)
+        launched = layout_cuda.LAUNCHES["n_body"] - before
+        require(launched == 1, f"K12 launched {launched} times in one call of {it} iterations")
+        return out
 
     def plain(pts, ea, eb, it=iters, dev=device):
         return layout_cuda.n_body_plain(
@@ -1394,14 +1387,50 @@ def phase_layout(device, smi: str, repeat_inputs):
                              "from its plain version")
         return float((got - want).abs().max())
 
-    cases, errs = {}, []
-    for n in (600, 512, 1500):
+    def plan_of(n):
+        return f"{layout_cuda.launch_plan(n, **card)['ctas']} blocks"
+
+    cases, errs, checked = {}, [], []
+    for n, it in K12_CASES + ((blocks, 5), (blocks + 1, 5)):
         pts, ea, eb = n_body_case(n, 3)
-        got = k12(pts, ea, eb)
+        t0 = time.perf_counter()
+        got = k12(pts, ea, eb, it)
         torch.cuda.synchronize()
-        want, plain_ms = timed_plain(lambda: plain(pts, ea, eb))
-        errs.append(held(f"at {n} points x {iters} iterations", got, want))
-        cases[n] = {"plain_ms": plain_ms, "links": len(ea)}
+        k12_s = time.perf_counter() - t0
+        want, plain_ms = timed_plain(lambda: plain(pts, ea, eb, it))  # noqa: B023
+        errs.append(held(f"at {n} points x {it} iterations ({plan_of(n)})", got, want))
+        checked.append({"n": n, "iterations": it, "plan": plan_of(n),
+                        "k12_s": k12_s, "plain_ms": plain_ms})
+        log(f"K12 bit-equal at {n} points x {it} iterations ({plan_of(n)}): {k12_s:.3f} s, "
+            f"the plain version {plain_ms:.1f} ms")
+        if it == iters and n in (600, 1500):
+            cases[n] = {"plain_ms": plain_ms, "links": len(ea)}
+    # four levels of windows; 64 rows of each size, among them the first and
+    # the last, rows about each power-of-32 boundary and the first and last
+    # rows of some blocks, held to the plain rules over those rows alone
+    sampled = []
+    for n in K12_SAMPLED:
+        pts, ea, eb = n_body_case(n, 3)
+        ranges = layout_cuda.row_ranges(n, layout_cuda.launch_plan(n, **card)["ctas"])
+        rows = {0, n - 1, *(r for b in (0, 1, len(ranges) // 2, len(ranges) - 1)
+                            for r in (ranges[b][0], ranges[b][1] - 1)),
+                *(b + d for b in (1 << 10, 1 << 15, 1 << 20, (1 << 20) + (1 << 15))
+                  for d in (-1, 0, 1) if b + d < n)}
+        rng = np.random.default_rng(9)
+        while len(rows) < 64:
+            rows.add(int(rng.integers(0, n)))
+        rows = np.array(sorted(rows))
+        t0 = time.perf_counter()
+        got = k12(pts, ea, eb, 1)
+        torch.cuda.synchronize()
+        big_s = time.perf_counter() - t0
+        want = layout_cuda.n_body_rows_plain(
+            torch.as_tensor(pts, dtype=torch.float32, device=device), ea, eb, rows)
+        errs.append(held(f"on {len(rows)} rows of {n} points x 1 iteration",
+                         got[torch.as_tensor(rows, device=got.device)], want))
+        sampled.append({"n": n, "rows": len(rows), "k12_s": big_s})
+        log(f"K12 at {n} points x 1 iteration ({plan_of(n)}): {big_s:.3f} s; {len(rows)} "
+            f"sampled rows bit-equal to the plain rules over those rows alone")
     # the card's bits are the CPU's, which the CPU tests hold to raven_tpu's
     pts, ea, eb = n_body_case(600, 3)
     t0 = time.perf_counter()
@@ -1410,13 +1439,12 @@ def phase_layout(device, smi: str, repeat_inputs):
     errs.append(held("at 600 points against the plain version on the CPU",
                      k12(pts, ea, eb), cpu))
     for i, (pts, ea, eb) in enumerate(repeat_inputs):
-        errs.append(held(f"on phase 4's repeat component {i} ({len(pts)} points)",
-                         k12(pts, ea, eb), plain(pts, ea, eb)))
+        errs.append(held(f"on phase 4's repeat component {i} ({len(pts)} points, "
+                         f"{plan_of(len(pts))})", k12(pts, ea, eb), plain(pts, ea, eb)))
     require(len(repeat_inputs) > 0, "phase 4's repeat run gave the n-body no component")
-    log(f"K12 bit-equal to its plain version on the card at 600, 512 and 1500 points x "
-        f"{iters} iterations, to the plain version on the CPU at 600 ({cpu_s:.3f} s "
+    log(f"K12 bit-equal to the plain version on the CPU at 600 points ({cpu_s:.3f} s "
         f"there), and on phase 4's {len(repeat_inputs)} repeat components "
-        f"({sorted({len(p) for p, _, _ in repeat_inputs})} points)")
+        f"({sorted({len(p) for p, _, _ in repeat_inputs})} points); one launch a call")
 
     # float32 on the card against the float64 host loop: the n-body
     # amplifies rounding ~2.5x per iteration, so compare after 3, where
@@ -1437,19 +1465,20 @@ def phase_layout(device, smi: str, repeat_inputs):
         p32 = torch.as_tensor(pts, dtype=torch.float32, device=device)
         slots = layout_cuda.attraction_slots(n, ea, eb).shape[1]
         bound, by, detail = n_body_bound(n, len(ea), slots, iters)
-        fn = lambda: layout_cuda.n_body_kernel(p32, ea, eb, iters)  # noqa: E731
+        fn = lambda: layout_cuda.n_body_kernel(p32, ea, eb, iters)  # noqa: B023, E731
         cases[n].update({
             "ms": cuda_ms(fn, runs=10, warmup=2),
-            "device_ms": device_ms_total(fn, "n_body"),
+            "device_ms": device_ms(fn, "n_body"),
+            "plan": plan_of(n),
             "bound_ms": bound, "bound_by": by, **detail,
             "shape": [n, 2], "slots": slots, "iterations": iters,
         })
         c = cases[n]
         log(f"K12 at {n} points ({c['links']} links, {slots} slots) x {iters} iterations "
-            f"on {smi}: {c['ms']:.4f} ms a call, device {fmt_ms(c['device_ms'])}, bound "
-            f"{bound:.4f} ms ({by}: {detail['fp32_flops']} float32 flops), "
-            f"{bound / c['ms']:.2%} of it; plain version on the card {c['plain_ms']:.1f} ms; "
-            f"{2 * iters} launches a call")
+            f"on {smi} ({c['plan']}): {c['ms']:.4f} ms a call, device "
+            f"{fmt_ms(c['device_ms'])}, bound {bound:.4f} ms ({by}: {detail['fp32_flops']} "
+            f"float32 flops), {bound / c['ms']:.2%} of it; plain version on the card "
+            f"{c['plain_ms']:.1f} ms; 1 launch a call")
 
     g = gmod.Graph()
     n = 600
@@ -1473,9 +1502,11 @@ def phase_layout(device, smi: str, repeat_inputs):
         f"{launches}; 100-iteration n-body at 600 points (host wall, the transfers "
         f"included) {t_nbody:.3f} s"
     )
-    require(runs > 0 and launches > 0, "the layout n-body did not run K12 on the card")
+    require(runs > 0 and launches == runs,
+            f"remove_long_edges: {runs} n-body runs on the card, {launches} K12 launches")
     return {"layout_runs": runs, "launches": launches, "nbody_100_s": t_nbody,
-            "max_abs_err": max(errs), "cases": cases, "cpu_plain_s": cpu_s}
+            "max_abs_err": max(errs), "cases": cases, "checked": checked,
+            "cpu_plain_s": cpu_s, "sampled": sampled}
 
 
 def consensus_chunk(n_rows: int = 2048, t_pad: int = 640, q_pad: int = 768, windows=None):
@@ -3709,8 +3740,11 @@ def run() -> dict:
         "library_ms": None,
         "shape": k12["shape"],
         "iterations": k12["iterations"],
+        "plan": k12["plan"],
         "at_1500": {key: lay["cases"][1500][key] for key in (
-            "ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "shape")},
+            "ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "shape", "plan")},
+        "bit_equal_cases": lay["checked"],
+        "sampled_rows": lay["sampled"],
         "nbody_100_s": lay["nbody_100_s"],
     })
     # the routes past the old limits, timed at phase 13(d)'s full batch (K9's

@@ -11,8 +11,10 @@ raven_tpu_torch.graph.layout._layout_component_device at 600 and 1,500
 points x 100 iterations (chip_smoke.n_body_case's components): the host
 wall from numpy points in to numpy points out with the card synchronised
 on both sides, the median of 5 calls after one warm-up (which builds a
-kernel where the tree has one).  Prints the card's name and power limit,
-one line a measurement and a last line of JSON.
+kernel where the tree has one), and the device time of a call, the n-body
+kernels' launches summed in a torch.profiler trace (the median of 5
+calls).  Prints the card's name and power limit, one line a measurement
+and a last line of JSON.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ def child(tree: str) -> None:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from raven_tpu_torch.graph import layout
 
@@ -49,7 +53,15 @@ def child(tree: str) -> None:
             layout._layout_component_device(pts.copy(), ea, eb, ITERS, "cuda")
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        out[n] = {"wall_s": statistics.median(walls[1:]), "first_s": walls[0]}
+        device = []
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                layout._layout_component_device(pts.copy(), ea, eb, ITERS, "cuda")
+                torch.cuda.synchronize()
+            device.append(sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                              if e.device_type == DeviceType.CUDA and "n_body" in e.name))
+        out[n] = {"wall_s": statistics.median(walls[1:]), "first_s": walls[0],
+                  "device_ms": statistics.median(device)}
     print(json.dumps(out))
 
 
@@ -74,7 +86,8 @@ def main() -> int:
         runs.append({"tree": tag, **got})
         for n, r in got.items():
             print(f"{tag} ({tree}) n-body at {n} points x {ITERS} iterations on {smi}: "
-                  f"{r['wall_s']:.4f} s (first call {r['first_s']:.3f} s)", flush=True)
+                  f"{r['wall_s']:.4f} s (first call {r['first_s']:.3f} s), device "
+                  f"{r['device_ms']:.4f} ms", flush=True)
     print(json.dumps({"device": smi, "runs": runs}))
     return 0
 

@@ -5,9 +5,11 @@ raven_tpu's own float32 order.
 raven_tpu/graph/layout.py::_device_layout_fn: Fruchterman-Reingold
 iterations over one component, exact dense repulsion, attraction along the
 links.  On a CUDA tensor it launches the hand-written kernel in
-raven_tpu_torch/csrc/layout.cu (two launches an iteration) or raises; on a
-CPU tensor it runs `n_body_plain`, the same arithmetic in torch ops.  Both
-give the bits raven_tpu's jitted loop gives on an x86 host with FMA.
+raven_tpu_torch/csrc/layout.cu (one cooperative launch for all
+iterations, of the blocks `launch_plan` picks from the card) or raises;
+on a CPU tensor it runs `n_body_plain`, the same arithmetic in torch ops.
+Both give the bits raven_tpu's jitted loop gives on an x86 host with
+FMA.
 
 The n-body is chaotic (a last-bit difference grows ~2.5x an iteration), so
 the same positions after 100 iterations need the same roundings in the same
@@ -45,9 +47,8 @@ import numpy as np
 import torch
 
 WIN = 32  # XLA:CPU's reduce-window of a row sum
-# the kernel's update sums at most three levels of windows: W <= 32^3
-KERNEL_MAX_NODES = WIN ** 4
 LAUNCHES = {"n_body": 0}
+INDEX_MAX = 2 ** 31 - 64  # point indices and window starts are int32
 # the plain version's repulsion goes a block of rows at a time, about this
 # many pair terms a block: few enough to stay in a CPU's cache, and on the
 # card enough for a whole component at the sizes the assembler lays out
@@ -180,27 +181,30 @@ def move(step, r, p):
     return fma32(step, r, p)
 
 
-def _repulsion_plain(px, py, kk, rows_per_block: int):
-    """Each row's repulsion sum, (rx, ry) [n] float32.  Columns are laid
-    out window-major ([32, rows, W], column 32w + t at [t, :, w]) so that
-    each window's running sum adds one contiguous slice per column.  The
-    diagonal's term is 0 * inv = +0 as it stands; the last window's columns
-    past n are zeroed.  Every divisor is a tensor on the device: torch
-    divides a CUDA tensor by a scalar as a product with its reciprocal."""
+def _repulsion_plain(px, py, kk, rows_per_block: int, rows=None):
+    """Each row's repulsion sum, (rx, ry) [n] float32 (of `rows` alone, an
+    index tensor, when given).  Columns are laid out window-major ([32,
+    rows, W], column 32w + t at [t, :, w]) so that each window's running sum
+    adds one contiguous slice per column.  The diagonal's term is 0 * inv =
+    +0 as it stands; the last window's columns past n are zeroed.  Every
+    divisor is a tensor on the device: torch divides a CUDA tensor by a
+    scalar as a product with its reciprocal."""
     n = px.shape[0]
+    qx, qy = (px, py) if rows is None else (px[rows], py[rows])
+    m = qx.shape[0]
     dev = px.device
     W = -(-n // WIN)
     cols = torch.arange(W * WIN, device=dev).clamp(max=n - 1).view(W, WIN).t()
     cx, cy = px[cols][:, None, :], py[cols][:, None, :]  # [32, 1, W]
     pad = n - WIN * (W - 1)  # the last window's real columns
     kk = torch.full((1, 1, 1), float(kk), dtype=_F32, device=dev)
-    rx = torch.empty(n, dtype=_F32, device=dev)
-    ry = torch.empty(n, dtype=_F32, device=dev)
-    for r0 in range(0, n, rows_per_block):
-        r1 = min(r0 + rows_per_block, n)
+    rx = torch.empty(m, dtype=_F32, device=dev)
+    ry = torch.empty(m, dtype=_F32, device=dev)
+    for r0 in range(0, m, rows_per_block):
+        r1 = min(r0 + rows_per_block, m)
         shape = (WIN, r1 - r0, W)
-        dx = torch.sub(px[None, r0:r1, None], cx, out=torch.empty(shape, device=dev))
-        dy = torch.sub(py[None, r0:r1, None], cy, out=torch.empty(shape, device=dev))
+        dx = torch.sub(qx[None, r0:r1, None], cx, out=torch.empty(shape, device=dev))
+        dy = torch.sub(qy[None, r0:r1, None], cy, out=torch.empty(shape, device=dev))
         inv = kk / torch.clamp(pair_dist2(dx, dy), min=1e-8)
         inv[pad:, :, W - 1] = 0.0
         px_w, py_w = _in_order(dx.mul_(inv)), _in_order(dy.mul_(inv))  # [b, W]
@@ -218,38 +222,84 @@ def n_body_plain(points, edges_a, edges_b, num_iterations: int):
     float32 [n, 2] on points' device."""
     pts = points.to(_F32)
     n = pts.shape[0]
-    dev = pts.device
     k, kk = scales(n)
-    k_t = torch.full((1,), float(k), dtype=_F32, device=dev)
     # [D, n]: slot j of every node in one contiguous row
     slots = torch.as_tensor(
-        attraction_slots(n, np.asarray(edges_a), np.asarray(edges_b)).T.copy(), device=dev
-    )
-    linked = slots >= 0
-    partner = slots.clamp(min=0)
-    terms = _BLOCK_TERMS if dev.type == "cpu" else _BLOCK_TERMS_CARD
-    rows_per_block = max(1, terms // (WIN * -(-n // WIN)))
+        attraction_slots(n, np.asarray(edges_a), np.asarray(edges_b)).T.copy(),
+        device=pts.device)
+    rows_per_block = _rows_per_block(n, pts.device)
     for t in temperatures(num_iterations):
         px, py = pts[:, 0].contiguous(), pts[:, 1].contiguous()
         rx, ry = _repulsion_plain(px, py, kk, rows_per_block)
-        # attraction, one link at a time in link order onto the row sum;
-        # an empty slot adds +0, which changes no sum (none holds -0)
-        ax = px[None, :] - px[partner]
-        ay = py[None, :] - py[partner]
-        s = -torch.clamp(sqrt32(link_dist2(ax, ay)), min=0.01) / k_t
-        cx = torch.where(linked, ax * s, 0.0)
-        cy = torch.where(linked, ay * s, 0.0)
-        for j in range(slots.shape[0]):
-            rx = rx + cx[j]
-            ry = ry + cy[j]
-        length = sqrt32(disp_length2(rx, ry))
-        length = torch.where(length < 0.01, 0.1, length)
-        step = torch.full_like(length, float(t)) / length
-        pts = torch.stack([move(step, rx, px), move(step, ry, py)], dim=1)
+        pts = _links_and_move(px, py, px, py, rx, ry, slots, k, t)
     return pts
 
 
+def n_body_rows_plain(points, edges_a, edges_b, rows):
+    """Rows `rows` (int array) of n_body_plain(points, edges_a, edges_b, 1):
+    the same rules over those rows alone, for a component whose every row
+    would take too long.  float32 [len(rows), 2] on points' device."""
+    pts = points.to(_F32)
+    n = pts.shape[0]
+    rows = np.asarray(rows)
+    k, kk = scales(n)
+    slots = torch.as_tensor(
+        attraction_slots(n, np.asarray(edges_a), np.asarray(edges_b))[rows].T.copy(),
+        device=pts.device)
+    px, py = pts[:, 0].contiguous(), pts[:, 1].contiguous()
+    idx = torch.as_tensor(rows, device=pts.device)
+    rx, ry = _repulsion_plain(px, py, kk, _rows_per_block(n, pts.device), idx)
+    return _links_and_move(px[idx], py[idx], px, py, rx, ry, slots, k, temperatures(1)[0])
+
+
+def _rows_per_block(n: int, dev) -> int:
+    terms = _BLOCK_TERMS if dev.type == "cpu" else _BLOCK_TERMS_CARD
+    return max(1, terms // (WIN * -(-n // WIN)))
+
+
+def _links_and_move(qx, qy, px, py, rx, ry, slots, k, t):
+    """Rows (qx, qy) of the points (px, py) moved at temperature t: their
+    links (slots [D, rows], -1 past the last) added one at a time in link
+    order onto their repulsion sums (rx, ry), then the update.  An empty
+    slot adds +0, which changes no sum (none holds -0)."""
+    dev = px.device
+    linked = slots >= 0
+    partner = slots.clamp(min=0)
+    k_t = torch.full((1,), float(k), dtype=_F32, device=dev)
+    ax = qx[None, :] - px[partner]
+    ay = qy[None, :] - py[partner]
+    s = -torch.clamp(sqrt32(link_dist2(ax, ay)), min=0.01) / k_t
+    cx = torch.where(linked, ax * s, 0.0)
+    cy = torch.where(linked, ay * s, 0.0)
+    for j in range(slots.shape[0]):
+        rx = rx + cx[j]
+        ry = ry + cy[j]
+    length = sqrt32(disp_length2(rx, ry))
+    length = torch.where(length < 0.01, 0.1, length)
+    step = torch.full_like(length, float(t)) / length
+    return torch.stack([move(step, rx, qx), move(step, ry, qy)], dim=1)
+
+
+def launch_plan(n: int, sms: int, per_sm: int) -> dict:
+    """K12's launch for a component of n points, from the card's SM count
+    and the kernel's co-resident blocks an SM: one cooperative grid of as
+    many blocks as the card holds at once, at most one a row.  Block b of
+    `ctas` owns rows row_ranges(n, ctas)[b].  Any n in [1, INDEX_MAX]."""
+    if not 1 <= n <= INDEX_MAX:
+        raise ValueError(f"K12 takes 1 to {INDEX_MAX} points, got {n}")
+    if per_sm * sms < 1:
+        raise ValueError("the card holds no block of K12")
+    return {"ctas": min(per_sm * sms, n)}
+
+
+def row_ranges(n: int, ctas: int) -> list[tuple[int, int]]:
+    """The rows [r0, r1) block b of ctas owns, as the kernel splits them."""
+    return [(b * n // ctas, (b + 1) * n // ctas) for b in range(ctas)]
+
+
 _FNS = None
+_CARDS: dict[int, dict] = {}
+_TEMPS: dict[tuple, torch.Tensor] = {}  # (device, iterations) -> temperatures
 
 
 def _fns():
@@ -258,18 +308,36 @@ def _fns():
         from raven_tpu_torch import csrc
 
         lib = csrc.load("layout")
-        fn = lib.raven_n_body_step_launch
+        card = lib.raven_n_body_card
+        card.restype = ctypes.c_int
+        card.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        fn = lib.raven_n_body_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        _FNS = lib, fn
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [
+            ctypes.c_int, ctypes.c_void_p]
+        _FNS = lib, card, fn
     return _FNS
 
 
+def card_info(device) -> dict:
+    """launch_plan's card arguments for a CUDA device, read once a card."""
+    from raven_tpu_torch import csrc
+
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _CARDS:
+        lib, card, _ = _fns()
+        sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = card(ctypes.byref(sms), ctypes.byref(per_sm))
+        csrc.check(lib, err, "layout n-body card query")
+        _CARDS[index] = {"sms": sms.value, "per_sm": per_sm.value}
+    return _CARDS[index]
+
+
 def n_body_kernel(points, edges_a, edges_b, num_iterations: int):
-    """K12 on the card: n_body_plain's arithmetic, two launches an
-    iteration on points' device.  Raises on a failed build or launch."""
+    """K12 on the card: n_body_plain's arithmetic, one launch for all
+    iterations on points' device.  Raises on a failed build or launch."""
     from raven_tpu_torch import csrc
 
     dev = points.device
@@ -277,32 +345,32 @@ def n_body_kernel(points, edges_a, edges_b, num_iterations: int):
     if points.dtype != _F32 or tuple(points.shape) != (n, 2):
         raise TypeError(f"points must be [n, 2] float32, got {points.dtype} "
                         f"{tuple(points.shape)}")
-    if not 1 <= n <= KERNEL_MAX_NODES:
-        raise ValueError(f"K12 takes 1 to {KERNEL_MAX_NODES} points (three levels of "
-                         f"its row-sum tree), got {n}")
     edges_a, edges_b = np.asarray(edges_a), np.asarray(edges_b)
     for e in (edges_a, edges_b):
         if e.size and not (0 <= int(e.min()) and int(e.max()) < n):
             raise ValueError(f"link endpoints must lie in [0, {n}), got "
                              f"[{int(e.min())}, {int(e.max())}]")
-    W = -(-n // WIN)
+    plan = launch_plan(n, **card_info(dev))
     k, kk = scales(n)
     slots = attraction_slots(n, edges_a, edges_b)
     slots_t = torch.as_tensor(np.ascontiguousarray(slots.T, dtype=np.int32), device=dev)
-    cur = points.contiguous().clone()
-    nxt = torch.empty_like(cur)
-    partials = torch.empty((W, n, 2), dtype=_F32, device=dev)
-    shared = int(n * 8 <= csrc.SMEM_BYTES)
-    lib, fn = _fns()
+    temps = _TEMPS.get((dev, num_iterations))
+    if temps is None:
+        temps = torch.as_tensor(np.array(temperatures(num_iterations), dtype=np.float32),
+                                device=dev)
+        _TEMPS[(dev, num_iterations)] = temps
+    # n rounded up to even: the kernel reads two points a 16-byte load
+    buf0 = torch.empty((n + n % 2, 2), dtype=_F32, device=dev)
+    buf0[:n] = points
+    buf1 = torch.empty_like(buf0)
+    lib, _, fn = _fns()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for t in temperatures(num_iterations):
-            err = fn(cur.data_ptr(), partials.data_ptr(), slots_t.data_ptr(), nxt.data_ptr(),
-                     n, W, slots_t.shape[0], float(k), float(kk), float(t), shared, stream)
-            csrc.check(lib, err, "layout n-body kernel launch")
-            LAUNCHES["n_body"] += 2
-            cur, nxt = nxt, cur
-    return cur
+        err = fn(buf0.data_ptr(), buf1.data_ptr(), slots_t.data_ptr(), temps.data_ptr(), n,
+                 slots_t.shape[0], num_iterations, float(k), float(kk), plan["ctas"], stream)
+    csrc.check(lib, err, f"layout n-body kernel launch ({plan['ctas']} blocks)")
+    LAUNCHES["n_body"] += 1
+    return (buf1 if num_iterations % 2 else buf0)[:n]
 
 
 def n_body(points, edges_a, edges_b, num_iterations: int):
