@@ -1140,26 +1140,42 @@ def write_reads(work_dir, genome_size, repeat=None):
 def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> dict:
     """One `raven_tpu_torch.cli.main([reads, *flags, ...])` run on
     write_reads's reads; every count starts at 0 right before it and is
-    read right after."""
+    read right after.  The stages' walls are the program's spans
+    (raven_tpu_torch.utils.trace) under a CPU profiler: cli.construct,
+    cli.assemble, cli.polish and each polish.round with its engine."""
+    from torch.profiler import ProfilerActivity, profile
+
     from raven_tpu_torch import cli
     from raven_tpu_torch.graph import layout
     from raven_tpu_torch.io.readset import encode
     from raven_tpu_torch.ops import band_cuda, banded_cuda, consensus_cuda, dp_device
     from raven_tpu_torch.ops import layout_cuda, sketch_cuda
     from raven_tpu_torch.overlap.engine import MinimizerIndex
+    from raven_tpu_torch.utils import trace
 
     path, genome, reads = write_reads(work_dir, genome_size, repeat)
     argv = [path, *flags, "--disable-checkpoints", "--device", device]
-    timings: dict = {}
     out = io.StringIO()
     zero_counts()
     dp_device.DEVICE_RUNS = 0
     layout.DEVICE_RUNS = 0
     MinimizerIndex.host_declines = 0
+    trace.clear()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        rc = cli.main(argv, timings=timings)
+    with contextlib.redirect_stdout(out), profile(activities=[ProfilerActivity.CPU]):
+        rc = cli.main(argv)
     wall = time.perf_counter() - t0
+    spans = sorted(trace.spans(), key=lambda r: r.start)
+    trace.clear()
+
+    def seconds(name):
+        return sum(r.end - r.start for r in spans if r.name == name) / 1e9
+
+    timings = {"construct_s": seconds("cli.construct"), "assemble_s": seconds("cli.assemble"),
+               "polish_s": seconds("cli.polish"),
+               "polish_rounds": [{"round": r.counts["round"], "engine": r.counts["engine"],
+                                  "wall_s": (r.end - r.start) / 1e9}
+                                 for r in spans if r.name == "polish.round"]}
     run = {"launches": sketch_cuda.LAUNCHES, "layout_runs": layout.DEVICE_RUNS,
            "k2_launches": consensus_cuda.LAUNCHES,
            "k3_launches": band_cuda.LAUNCHES["band_forward"],

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 from raven_tpu_torch import __version__
 from raven_tpu_torch.config import (
@@ -25,6 +24,7 @@ from raven_tpu_torch.config import (
     OverlapPhaseCfg,
     PolishCfg,
 )
+from raven_tpu_torch.utils import trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,10 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: list[str] | None = None, timings: dict | None = None) -> int:
-    """Run the CLI; `timings`, when given, receives the construct, assemble
-    and polish walls in seconds ("construct_s", "assemble_s", "polish_s")
-    and each polish round's wall and engine ("polish_rounds")."""
+def main(argv: list[str] | None = None) -> int:
+    """Run the CLI.  Its steps are the spans "cli.load", "cli.construct",
+    "cli.assemble" and "cli.polish" under "cli.run" (raven_tpu_torch.utils.trace)."""
     args = build_parser().parse_args(argv)
     if not args.sequences and not args.resume:
         build_parser().print_help()
@@ -97,89 +96,73 @@ def main(argv: list[str] | None = None, timings: dict | None = None) -> int:
     device = resolve_device(args.device)
     GLOBALS.min_unitig_size = args.min_unitig_size
     GLOBALS.num_threads = args.threads  # fork-pool worker count (main.cc:102)
-    t_start = time.perf_counter()
+    with trace.span("cli.run", log="[raven_tpu_torch::]") as run:
+        graph = Graph()
+        if args.resume:
+            try:
+                with trace.span("cli.resume", log="[raven_tpu_torch::] loaded previous run"):
+                    graph = load_graph()
+            except Exception as e:
+                print(f"[raven_tpu_torch::] error loading checkpoint: {e}", file=sys.stderr)
+                run.log = None
+                return 1
 
-    graph = Graph()
-    if args.resume:
-        try:
-            graph = load_graph()
-        except Exception as e:
-            print(f"[raven_tpu_torch::] error loading checkpoint: {e}", file=sys.stderr)
-            return 1
-        print(
-            f"[raven_tpu_torch::] loaded previous run "
-            f"{time.perf_counter() - t_start:.6f}s",
-            file=sys.stderr,
+        # sequences needed unless resuming past construct with polishing done
+        readset = None
+        if graph.stage < -3 or args.polishing_rounds > max(0, graph.stage):
+            with trace.span("cli.load") as s:
+                try:
+                    readset = load_sequences(args.sequences)
+                except Exception as e:
+                    print(str(e), file=sys.stderr)
+                    run.log = None
+                    return 1
+                if len(readset) == 0:
+                    print("[raven_tpu_torch::] error: empty sequences set", file=sys.stderr)
+                    run.log = None
+                    return 1
+                s["reads"] = len(readset)
+                s.log = f"[raven_tpu_torch::] loaded {len(readset)} sequences"
+
+        checkpoints = not args.disable_checkpoints
+        cfg = OverlapPhaseCfg(
+            kmer_len=args.kmer_len,
+            window_len=args.window_len,
+            freq=args.frequency,
+            identity=args.identity,
+            max_num_overlaps=args.max_overlaps,
+            use_minhash=args.minhash,
         )
+        with trace.span("cli.construct"):
+            if readset is not None:
+                construct_graph(graph, readset, cfg, checkpoints, device=device)
+        with trace.span("cli.assemble"):
+            assemble(graph, checkpoints, device=device)
+        with trace.span("cli.polish"):
+            if readset is not None:
+                polish(
+                    graph,
+                    readset,
+                    PolishCfg(
+                        align_cfg=AlignCfg(args.match, args.mismatch, args.gap),
+                        device_cfg=DeviceCfg(
+                            args.device_poa_batches,
+                            args.device_alignment_batches,
+                            args.device_banded_alignment,
+                        ),
+                        num_rounds=args.polishing_rounds,
+                    ),
+                    checkpoints,
+                    device=device,
+                )
 
-    # sequences needed unless resuming past construct with polishing done
-    readset = None
-    if graph.stage < -3 or args.polishing_rounds > max(0, graph.stage):
-        t0 = time.perf_counter()
-        try:
-            readset = load_sequences(args.sequences)
-        except Exception as e:
-            print(str(e), file=sys.stderr)
-            return 1
-        if len(readset) == 0:
-            print("[raven_tpu_torch::] error: empty sequences set", file=sys.stderr)
-            return 1
-        print(
-            f"[raven_tpu_torch::] loaded {len(readset)} sequences "
-            f"{time.perf_counter() - t0:.6f}s",
-            file=sys.stderr,
-        )
+        print_gfa(graph, args.graphical_fragment_assembly)
+        if args.unitig_graphical_fragment_assembly:
+            print_unitig_gfa(graph, args.unitig_graphical_fragment_assembly)
 
-    checkpoints = not args.disable_checkpoints
-    cfg = OverlapPhaseCfg(
-        kmer_len=args.kmer_len,
-        window_len=args.window_len,
-        freq=args.frequency,
-        identity=args.identity,
-        max_num_overlaps=args.max_overlaps,
-        use_minhash=args.minhash,
-    )
-    t0 = time.perf_counter()
-    if readset is not None:
-        construct_graph(graph, readset, cfg, checkpoints, device=device)
-    t1 = time.perf_counter()
-    assemble(graph, checkpoints, device=device)
-    t2 = time.perf_counter()
-    if readset is not None:
-        polish(
-            graph,
-            readset,
-            PolishCfg(
-                align_cfg=AlignCfg(args.match, args.mismatch, args.gap),
-                device_cfg=DeviceCfg(
-                    args.device_poa_batches,
-                    args.device_alignment_batches,
-                    args.device_banded_alignment,
-                ),
-                num_rounds=args.polishing_rounds,
-            ),
-            checkpoints,
-            device=device,
-            timings=timings,
-        )
-    t3 = time.perf_counter()
-    if timings is not None:
-        timings["construct_s"] = t1 - t0
-        timings["assemble_s"] = t2 - t1
-        timings["polish_s"] = t3 - t2
-
-    print_gfa(graph, args.graphical_fragment_assembly)
-    if args.unitig_graphical_fragment_assembly:
-        print_unitig_gfa(graph, args.unitig_graphical_fragment_assembly)
-
-    for node in get_unitigs(graph, args.polishing_rounds > 0):
-        sys.stdout.write(f">{unitig_record_name(node)}\n")
-        sys.stdout.write(node.sequence_str() + "\n")
-
-    print(
-        f"[raven_tpu_torch::] {time.perf_counter() - t_start:.6f}s",
-        file=sys.stderr,
-    )
+        for node in get_unitigs(graph, args.polishing_rounds > 0):
+            sys.stdout.write(f">{unitig_record_name(node)}\n")
+            sys.stdout.write(node.sequence_str() + "\n")
     return 0
 
 

@@ -8,8 +8,6 @@ removal (:700-730), plasmid salvage (:732-795), stage driver (:857-880).
 from __future__ import annotations
 
 import collections
-import sys
-import time
 
 import numpy as np
 
@@ -18,6 +16,7 @@ from raven_tpu_torch.graph.common import create_unitigs, remove_edges
 from raven_tpu_torch.graph.graph import Graph, Node
 from raven_tpu_torch.graph.layout import create_force_directed_layout
 from raven_tpu_torch.ops.edit_distance import edit_distance_bounded
+from raven_tpu_torch.utils import trace
 
 TRANSITIVE_EPS = 0.12  # assemble.cc:28
 TIP_MAX_READS = 5  # assemble.cc:101
@@ -29,50 +28,46 @@ LONG_EDGE_RATIO = 2.0  # assemble.cc:715
 LONG_EDGE_UNITIG_EPS = 42  # assemble.cc:818
 
 
-def _log(msg: str, t0: float) -> None:
-    print(
-        f"[raven_tpu::Graph::Assemble] {msg} {time.perf_counter() - t0:.6f}s",
-        file=sys.stderr,
-    )
+def _stage(name: str, msg: str) -> trace.span:
+    """The span of an assemble stage, which prints its stage-log line."""
+    return trace.span("assemble." + name, log=f"[raven_tpu::Graph::Assemble] {msg}")
 
 
 def remove_transitive_edges(graph: Graph) -> int:
     """Length-comparable transitive reduction (assemble.cc:23-73)."""
-    t0 = time.perf_counter()
+    with _stage("transitive", "removed transitive edges"):
+        def is_comparable(a: float, b: float) -> bool:
+            eps = TRANSITIVE_EPS
+            return (b * (1 - eps) <= a <= b * (1 + eps)) or (
+                a * (1 - eps) <= b <= a * (1 + eps)
+            )
 
-    def is_comparable(a: float, b: float) -> bool:
-        eps = TRANSITIVE_EPS
-        return (b * (1 - eps) <= a <= b * (1 + eps)) or (
-            a * (1 - eps) <= b <= a * (1 + eps)
-        )
+        candidate: dict[int, object] = {}
+        marked: set[int] = set()
+        for it in graph.nodes:
+            if it is None:
+                continue
+            for jt in it.outedges:
+                candidate[jt.head.id] = jt
+            for jt in it.outedges:
+                for kt in jt.head.outedges:
+                    ce = candidate.get(kt.head.id)
+                    if ce is not None and is_comparable(
+                        jt.length + kt.length, ce.length
+                    ):
+                        marked.add(ce.id)
+                        marked.add(ce.pair.id)
+            for jt in it.outedges:
+                candidate.pop(jt.head.id, None)
 
-    candidate: dict[int, object] = {}
-    marked: set[int] = set()
-    for it in graph.nodes:
-        if it is None:
-            continue
-        for jt in it.outedges:
-            candidate[jt.head.id] = jt
-        for jt in it.outedges:
-            for kt in jt.head.outedges:
-                ce = candidate.get(kt.head.id)
-                if ce is not None and is_comparable(
-                    jt.length + kt.length, ce.length
-                ):
-                    marked.add(ce.id)
-                    marked.add(ce.pair.id)
-        for jt in it.outedges:
-            candidate.pop(jt.head.id, None)
+        for i in marked:  # keep hints for the force-directed layout
+            if i & 1:
+                lhs = graph.edges[i].tail.id & ~1
+                rhs = graph.edges[i].head.id & ~1
+                graph.nodes[lhs].transitive.add(rhs)
+                graph.nodes[rhs].transitive.add(lhs)
 
-    for i in marked:  # keep hints for the force-directed layout
-        if i & 1:
-            lhs = graph.edges[i].tail.id & ~1
-            rhs = graph.edges[i].head.id & ~1
-            graph.nodes[lhs].transitive.add(rhs)
-            graph.nodes[rhs].transitive.add(lhs)
-
-    remove_edges(graph, marked)
-    _log("removed transitive edges", t0)
+        remove_edges(graph, marked)
     return len(marked) // 2
 
 
@@ -370,21 +365,19 @@ def salvage_plasmids(graph: Graph, device=None) -> int:
 
 def remove_tips_and_bubbles(graph: Graph) -> None:
     """Fixpoint of tip + bubble removal (assemble.cc:797-811)."""
-    t0 = time.perf_counter()
-    while True:
-        num_changes = remove_tips(graph)
-        num_changes += remove_bubbles(graph)
-        if num_changes == 0:
-            break
-    _log("removed tips and bubbles", t0)
+    with _stage("tips_bubbles", "removed tips and bubbles"):
+        while True:
+            num_changes = remove_tips(graph)
+            num_changes += remove_bubbles(graph)
+            if num_changes == 0:
+                break
 
 
 def remove_long_edges_stage(graph: Graph, device=None) -> None:
     """Stage -1 (assemble.cc:813-837)."""
-    t0 = time.perf_counter()
-    create_unitigs(graph, LONG_EDGE_UNITIG_EPS)  # speed up the layout
-    remove_long_edges(graph, LONG_EDGE_ROUNDS, device)
-    _log("removed long edges", t0)
+    with _stage("long_edges", "removed long edges"):
+        create_unitigs(graph, LONG_EDGE_UNITIG_EPS)  # speed up the layout
+        remove_long_edges(graph, LONG_EDGE_ROUNDS, device)
 
     while True:
         num_changes = remove_tips(graph)
@@ -402,46 +395,43 @@ def assemble(graph: Graph, checkpoints: bool = False, device=None) -> None:
     if graph.stage < -3 or graph.stage > -1:
         return
     device = resolve_device(device)
-    total = time.perf_counter()
 
     def checkpoint():
         if checkpoints:
             from raven_tpu_torch.graph.binary import store_graph
 
-            t0 = time.perf_counter()
-            store_graph(graph)
-            _log("reached checkpoint", t0)
+            with _stage("checkpoint", "reached checkpoint"):
+                store_graph(graph)
 
     from raven_tpu_torch.utils import stagedump
 
-    if graph.stage == -3:
-        remove_transitive_edges(graph)
-        if stagedump.enabled():
-            stagedump.dump(
-                "assemble/remove_transitive_edges",
-                **stagedump.graph_stats(graph),
-            )
-        graph.stage += 1
-        checkpoint()
+    with _stage("graph", ""):
+        if graph.stage == -3:
+            remove_transitive_edges(graph)
+            if stagedump.enabled():
+                stagedump.dump(
+                    "assemble/remove_transitive_edges",
+                    **stagedump.graph_stats(graph),
+                )
+            graph.stage += 1
+            checkpoint()
 
-    if graph.stage == -2:
-        remove_tips_and_bubbles(graph)
-        if stagedump.enabled():
-            stagedump.dump(
-                "assemble/remove_tips_and_bubbles",
-                **stagedump.graph_stats(graph),
-            )
-        graph.stage += 1
-        checkpoint()
+        if graph.stage == -2:
+            remove_tips_and_bubbles(graph)
+            if stagedump.enabled():
+                stagedump.dump(
+                    "assemble/remove_tips_and_bubbles",
+                    **stagedump.graph_stats(graph),
+                )
+            graph.stage += 1
+            checkpoint()
 
-    if graph.stage == -1:
-        remove_long_edges_stage(graph, device)
-        if stagedump.enabled():
-            stagedump.dump(
-                "assemble/remove_long_edges",
-                **stagedump.graph_stats(graph),
-            )
-        graph.stage += 1
-        checkpoint()
-
-    _log("", total)
+        if graph.stage == -1:
+            remove_long_edges_stage(graph, device)
+            if stagedump.enabled():
+                stagedump.dump(
+                    "assemble/remove_long_edges",
+                    **stagedump.graph_stats(graph),
+                )
+            graph.stage += 1
+            checkpoint()

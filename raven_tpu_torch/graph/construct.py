@@ -11,8 +11,6 @@ construct.cc:35,67) is kept so genomes larger than memory stream through.
 from __future__ import annotations
 
 import os
-import sys
-import time
 
 import numpy as np
 
@@ -23,7 +21,7 @@ from raven_tpu_torch.overlap.device_index import MAX_TOTAL_ENTRIES
 from raven_tpu_torch.overlap.engine import MinimizerIndex
 from raven_tpu_torch.overlap.types import OVERLAP_DTYPE, overlap_length, overlap_reverse
 from raven_tpu_torch.pile.pile import Piles
-from raven_tpu_torch.utils import stagedump
+from raven_tpu_torch.utils import stagedump, trace
 
 # the index batch's budget in bases: None keeps the reference's 2^32
 # (construct.cc:35), clamped on a card as _index_batch_bytes says; an int is
@@ -103,11 +101,12 @@ def _unanchored_reads(piles) -> list[int]:
     return out
 
 
-def _log(msg: str, t0: float) -> None:
-    print(
-        f"[raven_tpu::Graph::Construct] {msg} {time.perf_counter() - t0:.6f}s",
-        file=sys.stderr,
-    )
+_LOG = "[raven_tpu::Graph::Construct]"
+
+
+def _stage(name: str, msg: str, **counts) -> trace.span:
+    """The span of a construct stage, which prints its stage-log line."""
+    return trace.span("construct." + name, log=f"{_LOG} {msg}", **counts)
 
 
 def _concat(parts: list[np.ndarray]) -> np.ndarray:
@@ -117,6 +116,7 @@ def _concat(parts: list[np.ndarray]) -> np.ndarray:
     return np.concatenate(parts)
 
 
+@trace.spanned("construct.find_overlaps")
 def find_overlaps_and_create_piles(
     index: MinimizerIndex,
     readset,
@@ -139,86 +139,96 @@ def find_overlaps_and_create_piles(
             continue
         bytes_acc = 0
 
-        t0 = time.perf_counter()
-        index.minimize(
-            readset,
-            np.arange(batch_start, i + 1),
-            minhash=cfg.use_minhash,
-            with_query_flags=not cfg.use_minhash,  # stage -5 maps minhash=True
-        )
-        index.filter(cfg.freq)
-        _log(f"minimized {batch_start} - {i + 1} / {n}", t0)
-
-        t0 = time.perf_counter()
-        map_bytes = 0
-        batch_ids: list[int] = []
-        num_overlaps = [int(overlaps[k].size) for k in range(n)]
-        for k in range(i + 1):
-            batch_ids.append(k)
-            map_bytes += int(lengths[k])
-            if k != i and map_bytes < MAP_BATCH_BYTES:
-                continue
-            map_bytes = 0
-
-            results = index.map_many(
+        with _stage("minimize", f"minimized {batch_start} - {i + 1} / {n}",
+                    reads=i + 1 - batch_start,
+                    bases=int(lengths[batch_start : i + 1].sum())):
+            index.minimize(
                 readset,
-                np.array(batch_ids, dtype=np.int64),
-                avoid_equal=True,
-                avoid_symmetric=True,
-                minhash=True,
+                np.arange(batch_start, i + 1),
+                minhash=cfg.use_minhash,
+                with_query_flags=not cfg.use_minhash,  # stage -5 maps minhash=True
             )
-            new = _concat([results[b] for b in batch_ids])
-            batch_ids = []
-            touched: list[int] = []
-            if new.size:
-                # distribute to both endpoint lists
-                rev = overlap_reverse(new)
-                order_lhs = np.argsort(new["lhs_id"], kind="stable")
-                order_rhs = np.argsort(rev["lhs_id"], kind="stable")
-                for arr, order in ((new, order_lhs), (rev, order_rhs)):
-                    srt = arr[order]
-                    ids, starts = np.unique(srt["lhs_id"], return_index=True)
-                    touched.extend(ids.tolist())
-                    for rid, chunk in zip(
-                        ids.tolist(), np.split(srt, starts[1:])
-                    ):
-                        overlaps[rid] = _concat([overlaps[rid], chunk])
-                # accumulate coverage for the newly added overlaps
-                both = _concat([new, rev])
-                piles.add_layers(
-                    both["lhs_id"].astype(np.int64),
-                    both["lhs_begin"].astype(np.int64),
-                    both["lhs_end"].astype(np.int64),
-                )
+            index.filter(cfg.freq)
 
-            # cap stored overlaps (construct.cc:92-108); only reads that
-            # received overlaps this sub-batch can have grown, so the
-            # O(n)-per-sub-batch full sweep reduces to the touched set
-            for rid in sorted(set(touched)):
-                sz = int(overlaps[rid].size)
-                if sz == 0 or sz == num_overlaps[rid]:
+        with _stage("map_batch", "mapped sequences"):
+            map_bytes = 0
+            batch_ids: list[int] = []
+            num_overlaps = [int(overlaps[k].size) for k in range(n)]
+            for k in range(i + 1):
+                batch_ids.append(k)
+                map_bytes += int(lengths[k])
+                if k != i and map_bytes < MAP_BATCH_BYTES:
                     continue
-                num_overlaps[rid] = min(sz, cfg.max_num_overlaps)
-                if sz < cfg.max_num_overlaps:
-                    continue
-                lens = overlap_length(overlaps[rid])
-                order = np.argsort(-lens, kind="stable")[: cfg.max_num_overlaps]
-                overlaps[rid] = overlaps[rid][order]
-        _log("mapped sequences", t0)
+                map_bytes = 0
+
+                with trace.span("construct.map", reads=len(batch_ids)):
+                    results = index.map_many(
+                        readset,
+                        np.array(batch_ids, dtype=np.int64),
+                        avoid_equal=True,
+                        avoid_symmetric=True,
+                        minhash=True,
+                    )
+                with trace.span("construct.deal") as s:
+                    new = _concat([results[b] for b in batch_ids])
+                    batch_ids = []
+                    s["overlaps"] = int(new.size)
+                    touched: list[int] = []
+                    if new.size:
+                        # distribute to both endpoint lists
+                        rev = overlap_reverse(new)
+                        order_lhs = np.argsort(new["lhs_id"], kind="stable")
+                        order_rhs = np.argsort(rev["lhs_id"], kind="stable")
+                        for arr, order in ((new, order_lhs), (rev, order_rhs)):
+                            srt = arr[order]
+                            ids, starts = np.unique(srt["lhs_id"], return_index=True)
+                            touched.extend(ids.tolist())
+                            for rid, chunk in zip(
+                                ids.tolist(), np.split(srt, starts[1:])
+                            ):
+                                overlaps[rid] = _concat([overlaps[rid], chunk])
+                if new.size:
+                    # accumulate coverage for the newly added overlaps
+                    with trace.span("construct.layers", intervals=2 * int(new.size)):
+                        both = _concat([new, rev])
+                        piles.add_layers(
+                            both["lhs_id"].astype(np.int64),
+                            both["lhs_begin"].astype(np.int64),
+                            both["lhs_end"].astype(np.int64),
+                        )
+
+                # cap stored overlaps (construct.cc:92-108); only reads that
+                # received overlaps this sub-batch can have grown, so the
+                # O(n)-per-sub-batch full sweep reduces to the touched set
+                with trace.span("construct.cap") as s:
+                    touched_set = sorted(set(touched))
+                    capped = 0
+                    for rid in touched_set:
+                        sz = int(overlaps[rid].size)
+                        if sz == 0 or sz == num_overlaps[rid]:
+                            continue
+                        num_overlaps[rid] = min(sz, cfg.max_num_overlaps)
+                        if sz < cfg.max_num_overlaps:
+                            continue
+                        lens = overlap_length(overlaps[rid])
+                        order = np.argsort(-lens, kind="stable")[: cfg.max_num_overlaps]
+                        overlaps[rid] = overlaps[rid][order]
+                        capped += 1
+                    s["reads_touched"] = len(touched_set)
+                    s["reads_capped"] = capped
         batch_start = i + 1
 
 
 def trim_and_annotate_piles(piles: Piles, overlaps: list[np.ndarray]) -> None:
     """Stage -5 part 2 (reference construct.cc:123-152)."""
-    t0 = time.perf_counter()
-    for i in range(piles.n):
-        piles.find_valid_region(i, VALID_REGION_COVERAGE)
-        if piles.is_invalid[i]:
-            overlaps[i] = np.zeros(0, dtype=OVERLAP_DTYPE)
-        else:
-            piles.find_median(i)
-            piles.find_chimeric_regions(i)
-    _log("annotated piles", t0)
+    with _stage("annotate", "annotated piles"):
+        for i in range(piles.n):
+            piles.find_valid_region(i, VALID_REGION_COVERAGE)
+            if piles.is_invalid[i]:
+                overlaps[i] = np.zeros(0, dtype=OVERLAP_DTYPE)
+            else:
+                piles.find_median(i)
+                piles.find_chimeric_regions(i)
 
 
 def resolve_contained_reads(
@@ -228,85 +238,81 @@ def resolve_contained_reads(
     identity: float = 0.0,
 ) -> None:
     """Stage -5 part 3 (reference construct.cc:154-248)."""
-    t0 = time.perf_counter()
     if identity != 0:
         from raven_tpu_torch.ops.edit_distance import overlap_identity
 
+        with _stage("identity", "filtered overlaps"):
+            for i in range(piles.n):
+                if overlaps[i].size == 0:
+                    continue
+                upd, keep = ou.overlap_update(overlaps[i], piles)
+                upd = upd[keep]
+                scores = overlap_identity(upd, readset)
+                overlaps[i] = upd[scores >= identity]
+
+    with _stage("contained", "removed contained sequences"):
         for i in range(piles.n):
             if overlaps[i].size == 0:
                 continue
             upd, keep = ou.overlap_update(overlaps[i], piles)
             upd = upd[keep]
-            scores = overlap_identity(upd, readset)
-            overlaps[i] = upd[scores >= identity]
-        _log("filtered overlaps", t0)
-        t0 = time.perf_counter()
+            if upd.size == 0:
+                overlaps[i] = upd
+                continue
+            t = ou.get_overlap_type(upd, piles)
+            rhs_ids = upd["rhs_id"].astype(np.int64)
+            lhs_contained = (t == 1) & ~np.array(
+                [piles.is_maybe_chimeric(int(r)) for r in rhs_ids]
+            )
+            rhs_contained = (t == 2) & ~np.full(upd.size, piles.is_maybe_chimeric(i))
+            if lhs_contained.any():
+                piles.is_contained[i] = True
+            for r in rhs_ids[rhs_contained]:
+                piles.is_contained[int(r)] = True
+            overlaps[i] = upd[~lhs_contained & ~rhs_contained]
 
-    for i in range(piles.n):
-        if overlaps[i].size == 0:
-            continue
-        upd, keep = ou.overlap_update(overlaps[i], piles)
-        upd = upd[keep]
-        if upd.size == 0:
-            overlaps[i] = upd
-            continue
-        t = ou.get_overlap_type(upd, piles)
-        rhs_ids = upd["rhs_id"].astype(np.int64)
-        lhs_contained = (t == 1) & ~np.array(
-            [piles.is_maybe_chimeric(int(r)) for r in rhs_ids]
-        )
-        rhs_contained = (t == 2) & ~np.full(upd.size, piles.is_maybe_chimeric(i))
-        if lhs_contained.any():
-            piles.is_contained[i] = True
-        for r in rhs_ids[rhs_contained]:
-            piles.is_contained[int(r)] = True
-        overlaps[i] = upd[~lhs_contained & ~rhs_contained]
-
-    for i in range(piles.n):
-        if piles.is_contained[i]:
-            piles.is_invalid[i] = True
-            overlaps[i] = np.zeros(0, dtype=OVERLAP_DTYPE)
-    _log("removed contained sequences", t0)
+        for i in range(piles.n):
+            if piles.is_contained[i]:
+                piles.is_invalid[i] = True
+                overlaps[i] = np.zeros(0, dtype=OVERLAP_DTYPE)
 
 
 def resolve_chimeric_sequences(piles: Piles, overlaps: list[np.ndarray]) -> None:
     """Stage -5 part 4 (reference construct.cc:250-314)."""
-    t0 = time.perf_counter()
-    medians = piles.median[piles.median != 0]
-    if medians.size == 0:
-        _log("removed chimeric sequences", t0)
-        return
-    k = medians.size // 2
-    median = int(np.partition(medians, k)[k])
+    with _stage("chimeric", "removed chimeric sequences"):
+        medians = piles.median[piles.median != 0]
+        if medians.size == 0:
+            return
+        k = medians.size // 2
+        median = int(np.partition(medians, k)[k])
 
-    for i in range(piles.n):
-        if piles.is_invalid[i]:
-            continue
-        piles.clear_chimeric_regions(i, median)
-        if piles.is_invalid[i]:
+        for i in range(piles.n):
+            if piles.is_invalid[i]:
+                continue
+            piles.clear_chimeric_regions(i, median)
+            if piles.is_invalid[i]:
+                overlaps[i] = np.zeros(0, dtype=OVERLAP_DTYPE)
+
+        for i in range(piles.n):
+            if overlaps[i].size == 0:
+                continue
+            upd, keep = ou.overlap_update(overlaps[i], piles)
+            overlaps[i] = upd[keep]
+
+        for i in range(piles.n):
+            if overlaps[i].size == 0:
+                continue
+            t = ou.get_overlap_type(overlaps[i], piles)
+            for o, ty in zip(overlaps[i], t):
+                if ty == 1:
+                    piles.is_contained[int(o["lhs_id"])] = True
+                    piles.is_invalid[int(o["lhs_id"])] = True
+                elif ty == 2:
+                    piles.is_contained[int(o["rhs_id"])] = True
+                    piles.is_invalid[int(o["rhs_id"])] = True
+
+        for i in range(piles.n):
             overlaps[i] = np.zeros(0, dtype=OVERLAP_DTYPE)
-
-    for i in range(piles.n):
-        if overlaps[i].size == 0:
-            continue
-        upd, keep = ou.overlap_update(overlaps[i], piles)
-        overlaps[i] = upd[keep]
-
-    for i in range(piles.n):
-        if overlaps[i].size == 0:
-            continue
-        t = ou.get_overlap_type(overlaps[i], piles)
-        for o, ty in zip(overlaps[i], t):
-            if ty == 1:
-                piles.is_contained[int(o["lhs_id"])] = True
-                piles.is_invalid[int(o["lhs_id"])] = True
-            elif ty == 2:
-                piles.is_contained[int(o["rhs_id"])] = True
-                piles.is_invalid[int(o["rhs_id"])] = True
-
-    for i in range(piles.n):
-        overlaps[i] = np.zeros(0, dtype=OVERLAP_DTYPE)
-    _log("removed chimeric sequences", t0)
 
 
 def find_overlaps_and_repetitive_regions(
@@ -367,67 +373,64 @@ def find_overlaps_and_repetitive_regions(
             continue
         bytes_acc = 0
 
-        t0 = time.perf_counter()
-        ids = np.array(order[batch_start : idx + 1], dtype=np.int64)
-        index.minimize(readset, ids, minhash=False)
-        _log(f"minimized {batch_start} - {idx + 1} / {s}", t0)
+        with _stage("minimize_valid", f"minimized {batch_start} - {idx + 1} / {s}"):
+            ids = np.array(order[batch_start : idx + 1], dtype=np.int64)
+            index.minimize(readset, ids, minhash=False)
 
-        t0 = time.perf_counter()
-        index.filter(cfg.freq)
-        all_rids = [order[k] for k in range(idx + 1)]
-        filtered_map: dict[int, list] = {}
-        results: dict[int, np.ndarray] = {}
-        sub: list[int] = []
-        sub_bytes = 0
-        for pos, rid in enumerate(all_rids):  # 1 GiB map sub-batches
-            sub.append(rid)
-            sub_bytes += int(readset.lengths[rid])
-            if pos != len(all_rids) - 1 and sub_bytes < MAP_BATCH_BYTES:
-                continue
-            results.update(
-                index.map_many(
-                    readset,
-                    np.array(sub, dtype=np.int64),
-                    avoid_equal=True,
-                    avoid_symmetric=True,
-                    minhash=False,
-                    filtered_out=filtered_map,
-                )
-            )
-            sub = []
+        with _stage("map_valid", "mapped valid sequences"):
+            index.filter(cfg.freq)
+            all_rids = [order[k] for k in range(idx + 1)]
+            filtered_map: dict[int, list] = {}
+            results: dict[int, np.ndarray] = {}
+            sub: list[int] = []
             sub_bytes = 0
-        for rid in all_rids:
-            piles.add_kmers(
-                rid, filtered_map.get(rid, []), cfg.kmer_len,
-                readset.sequence(rid),
-            )
-            ovl = results[rid]
-            if cfg.identity != 0 and ovl.size:
-                from raven_tpu_torch.ops.edit_distance import overlap_identity
+            for pos, rid in enumerate(all_rids):  # 1 GiB map sub-batches
+                sub.append(rid)
+                sub_bytes += int(readset.lengths[rid])
+                if pos != len(all_rids) - 1 and sub_bytes < MAP_BATCH_BYTES:
+                    continue
+                results.update(
+                    index.map_many(
+                        readset,
+                        np.array(sub, dtype=np.int64),
+                        avoid_equal=True,
+                        avoid_symmetric=True,
+                        minhash=False,
+                        filtered_out=filtered_map,
+                    )
+                )
+                sub = []
+                sub_bytes = 0
+            for rid in all_rids:
+                piles.add_kmers(
+                    rid, filtered_map.get(rid, []), cfg.kmer_len,
+                    readset.sequence(rid),
+                )
+                ovl = results[rid]
+                if cfg.identity != 0 and ovl.size:
+                    from raven_tpu_torch.ops.edit_distance import overlap_identity
 
-                upd, keep = ou.overlap_update(ovl, piles)
-                upd = upd[keep]
-                scores = overlap_identity(upd, readset)
-                ovl = upd[scores >= cfg.identity]
-            if ovl.size:
-                merge(ovl)
-        _log("mapped valid sequences", t0)
+                    upd, keep = ou.overlap_update(ovl, piles)
+                    upd = upd[keep]
+                    scores = overlap_identity(upd, readset)
+                    ovl = upd[scores >= cfg.identity]
+                if ovl.size:
+                    merge(ovl)
         batch_start = idx + 1
 
-    t0 = time.perf_counter()
-    for i in range(piles.n):
-        if piles.is_contained[i]:
-            piles.is_invalid[i] = True
+    with _stage("update", "updated overlaps"):
+        for i in range(piles.n):
+            if piles.is_contained[i]:
+                piles.is_invalid[i] = True
 
-    result = (
-        np.concatenate(kept)
-        if kept
-        else np.zeros(0, dtype=OVERLAP_DTYPE)
-    )
-    if result.size:
-        upd, keep = ou.overlap_update(result, piles)
-        result = upd[keep]
-    _log("updated overlaps", t0)
+        result = (
+            np.concatenate(kept)
+            if kept
+            else np.zeros(0, dtype=OVERLAP_DTYPE)
+        )
+        if result.size:
+            upd, keep = ou.overlap_update(result, piles)
+            result = upd[keep]
     return result
 
 
@@ -443,59 +446,58 @@ def resolve_repeat_induced_overlaps(
     the reference keeps them, and because whole-read repeat regions are
     unconfirmable its check cannot stop them bridging distinct repeat
     copies (misjoins measured in misc/repeat_diag.py)."""
-    t0 = time.perf_counter()
-    n_unanchored = 0
-    if DROP_UNANCHORED and overlaps.size:
-        unanchored = _unanchored_reads(piles)
-        if unanchored:
-            n_unanchored = len(unanchored)
-            drop = np.zeros(piles.n, dtype=bool)
-            drop[np.array(unanchored, dtype=np.int64)] = True
-            piles.is_invalid[np.array(unanchored, dtype=np.int64)] = True
-            overlaps = overlaps[
-                ~(
-                    drop[overlaps["lhs_id"].astype(np.int64)]
-                    | drop[overlaps["rhs_id"].astype(np.int64)]
-                )
-            ]
-    while True:
-        components = ou.connected_components(overlaps, len(readset), piles)
-        for comp in components:
-            meds = piles.median[np.array(comp, dtype=np.int64)]
-            k = meds.size // 2
-            median = int(np.partition(meds, k)[k])
-            for i in comp:
-                piles.find_repetitive_regions(i, median)
+    with _stage("false_overlaps", "removed false overlaps") as s:
+        n_unanchored = 0
+        if DROP_UNANCHORED and overlaps.size:
+            unanchored = _unanchored_reads(piles)
+            if unanchored:
+                n_unanchored = len(unanchored)
+                drop = np.zeros(piles.n, dtype=bool)
+                drop[np.array(unanchored, dtype=np.int64)] = True
+                piles.is_invalid[np.array(unanchored, dtype=np.int64)] = True
+                overlaps = overlaps[
+                    ~(
+                        drop[overlaps["lhs_id"].astype(np.int64)]
+                        | drop[overlaps["rhs_id"].astype(np.int64)]
+                    )
+                ]
+        while True:
+            components = ou.connected_components(overlaps, len(readset), piles)
+            for comp in components:
+                meds = piles.median[np.array(comp, dtype=np.int64)]
+                k = meds.size // 2
+                median = int(np.partition(meds, k)[k])
+                for i in comp:
+                    piles.find_repetitive_regions(i, median)
 
-        # both sides of every overlap in one vectorized pass (the scalar
-        # per-overlap loop is the O(overlaps x regions) hot spot at scale;
-        # batch semantics oracle-tested in tests/test_pile.py)
-        side_ids = np.concatenate(
-            [overlaps["lhs_id"], overlaps["rhs_id"]]
-        ).astype(np.int64)
-        side_begins = np.concatenate(
-            [overlaps["lhs_begin"], overlaps["rhs_begin"]]
-        ).astype(np.int64)
-        side_ends = np.concatenate(
-            [overlaps["lhs_end"], overlaps["rhs_end"]]
-        ).astype(np.int64)
-        piles.update_repetitive_regions_batch(side_ids, side_begins, side_ends)
+            # both sides of every overlap in one vectorized pass (the scalar
+            # per-overlap loop is the O(overlaps x regions) hot spot at scale;
+            # batch semantics oracle-tested in tests/test_pile.py)
+            side_ids = np.concatenate(
+                [overlaps["lhs_id"], overlaps["rhs_id"]]
+            ).astype(np.int64)
+            side_begins = np.concatenate(
+                [overlaps["lhs_begin"], overlaps["rhs_begin"]]
+            ).astype(np.int64)
+            side_ends = np.concatenate(
+                [overlaps["lhs_end"], overlaps["rhs_end"]]
+            ).astype(np.int64)
+            piles.update_repetitive_regions_batch(side_ids, side_begins, side_ends)
 
-        blocked = piles.check_repetitive_regions_batch(
-            side_ids, side_begins, side_ends
-        )
-        keep = ~(blocked[: overlaps.size] | blocked[overlaps.size :])
-        changed = bool((~keep).any())
-        overlaps = overlaps[keep]
+            blocked = piles.check_repetitive_regions_batch(
+                side_ids, side_begins, side_ends
+            )
+            keep = ~(blocked[: overlaps.size] | blocked[overlaps.size :])
+            changed = bool((~keep).any())
+            overlaps = overlaps[keep]
 
-        if not changed:
-            break
-        for comp in components:
-            for i in comp:
-                piles.clear_repetitive_regions(i)
-    if n_unanchored:
-        _log(f"removed {n_unanchored} unanchored repeat reads", t0)
-    _log("removed false overlaps", t0)
+            if not changed:
+                break
+            for comp in components:
+                for i in comp:
+                    piles.clear_repetitive_regions(i)
+        if n_unanchored:
+            s.log = (f"{_LOG} removed {n_unanchored} unanchored repeat reads", s.log)
     return overlaps
 
 
@@ -504,40 +506,40 @@ def construct_assembly_graph(
 ) -> None:
     """Stage -4 part 3 (reference construct.cc:561-648): node + RC pair per
     valid pile, edge + RC pair per dovetail overlap."""
-    t0 = time.perf_counter()
-    sequence_to_node = np.full(piles.n, -1, dtype=np.int64)
+    with _stage("nodes", "") as s:
+        sequence_to_node = np.full(piles.n, -1, dtype=np.int64)
 
-    for i in range(piles.n):
-        if piles.is_invalid[i]:
-            continue
-        begin = piles.begin_bases(i)
-        end = piles.end_bases(i)
-        codes = readset.sequence(i, begin, end - begin)
-        sequence_to_node[i] = graph.next_node_index()
-        graph.new_node_pair(
-            readset.names[i], codes, seq_id=i, coverage=int(piles.median[i])
-        )
-    _log(f"stored {sum(n is not None for n in graph.nodes)} nodes", t0)
+        for i in range(piles.n):
+            if piles.is_invalid[i]:
+                continue
+            begin = piles.begin_bases(i)
+            end = piles.end_bases(i)
+            codes = readset.sequence(i, begin, end - begin)
+            sequence_to_node[i] = graph.next_node_index()
+            graph.new_node_pair(
+                readset.names[i], codes, seq_id=i, coverage=int(piles.median[i])
+            )
+        s.log = f"{_LOG} stored {sum(n is not None for n in graph.nodes)} nodes"
 
-    t0 = time.perf_counter()
-    fin, keep = ou.overlap_finalize(overlaps, piles)
-    fin = fin[keep]
-    n_edges = 0
-    for o in fin:
-        lhs, rhs = int(o["lhs_id"]), int(o["rhs_id"])
-        tail = graph.nodes[sequence_to_node[lhs]]
-        head = graph.nodes[sequence_to_node[rhs] + 1 - int(o["strand"])]
-        length = int(o["lhs_begin"]) - int(o["rhs_begin"])
-        length_pair = (piles.length_bases(rhs) - int(o["rhs_end"])) - (
-            piles.length_bases(lhs) - int(o["lhs_end"])
-        )
-        if o["score"] == 4:
-            tail, head = head, tail
-            length = -length
-            length_pair = -length_pair
-        graph.new_edge_pair(tail, head, length, length_pair)
-        n_edges += 2
-    _log(f"stored {n_edges} edges", t0)
+    with _stage("edges", "") as s:
+        fin, keep = ou.overlap_finalize(overlaps, piles)
+        fin = fin[keep]
+        n_edges = 0
+        for o in fin:
+            lhs, rhs = int(o["lhs_id"]), int(o["rhs_id"])
+            tail = graph.nodes[sequence_to_node[lhs]]
+            head = graph.nodes[sequence_to_node[rhs] + 1 - int(o["strand"])]
+            length = int(o["lhs_begin"]) - int(o["rhs_begin"])
+            length_pair = (piles.length_bases(rhs) - int(o["rhs_end"])) - (
+                piles.length_bases(lhs) - int(o["lhs_end"])
+            )
+            if o["score"] == 4:
+                tail, head = head, tail
+                length = -length
+                length_pair = -length_pair
+            graph.new_edge_pair(tail, head, length, length_pair)
+            n_edges += 2
+        s.log = f"{_LOG} stored {n_edges} edges"
 
 
 def construct_graph(
@@ -554,81 +556,77 @@ def construct_graph(
     if len(readset) == 0 or graph.stage > -4:
         return
 
-    total_t0 = time.perf_counter()
-    index = MinimizerIndex(cfg.kmer_len, cfg.window_len, device=device)
+    with _stage("graph", ""):
+        index = MinimizerIndex(cfg.kmer_len, cfg.window_len, device=device)
 
-    if graph.stage == -5:
-        piles = Piles(readset.lengths)
-        graph.piles = piles
-        overlaps: list[np.ndarray] = [
-            np.zeros(0, dtype=OVERLAP_DTYPE) for _ in range(len(readset))
-        ]
-        find_overlaps_and_create_piles(index, readset, cfg, piles, overlaps)
-        if stagedump.enabled():
-            stagedump.dump(
-                "construct/find_overlaps_and_create_piles",
-                **stagedump.pile_stats(piles),
-                **stagedump.overlap_stats(overlaps),
-            )
-        trim_and_annotate_piles(piles, overlaps)
-        if stagedump.enabled():
-            stagedump.dump(
-                "construct/trim_and_annotate_piles",
-                **stagedump.pile_stats(piles),
-                **stagedump.overlap_stats(overlaps),
-            )
-        resolve_contained_reads(piles, overlaps, readset, cfg.identity)
-        if stagedump.enabled():
-            stagedump.dump(
-                "construct/resolve_contained_reads",
-                **stagedump.pile_stats(piles),
-                **stagedump.overlap_stats(overlaps),
-            )
-        resolve_chimeric_sequences(piles, overlaps)
-        if stagedump.enabled():
-            stagedump.dump(
-                "construct/resolve_chimeric_sequences",
-                **stagedump.pile_stats(piles),
-            )
-        graph.stage += 1
-        if checkpoints:
-            from raven_tpu_torch.graph.binary import store_graph
+        if graph.stage == -5:
+            piles = Piles(readset.lengths)
+            graph.piles = piles
+            overlaps: list[np.ndarray] = [
+                np.zeros(0, dtype=OVERLAP_DTYPE) for _ in range(len(readset))
+            ]
+            find_overlaps_and_create_piles(index, readset, cfg, piles, overlaps)
+            if stagedump.enabled():
+                stagedump.dump(
+                    "construct/find_overlaps_and_create_piles",
+                    **stagedump.pile_stats(piles),
+                    **stagedump.overlap_stats(overlaps),
+                )
+            trim_and_annotate_piles(piles, overlaps)
+            if stagedump.enabled():
+                stagedump.dump(
+                    "construct/trim_and_annotate_piles",
+                    **stagedump.pile_stats(piles),
+                    **stagedump.overlap_stats(overlaps),
+                )
+            resolve_contained_reads(piles, overlaps, readset, cfg.identity)
+            if stagedump.enabled():
+                stagedump.dump(
+                    "construct/resolve_contained_reads",
+                    **stagedump.pile_stats(piles),
+                    **stagedump.overlap_stats(overlaps),
+                )
+            resolve_chimeric_sequences(piles, overlaps)
+            if stagedump.enabled():
+                stagedump.dump(
+                    "construct/resolve_chimeric_sequences",
+                    **stagedump.pile_stats(piles),
+                )
+            graph.stage += 1
+            if checkpoints:
+                from raven_tpu_torch.graph.binary import store_graph
 
-            t0 = time.perf_counter()
-            store_graph(graph)
-            _log("reached checkpoint", t0)
+                with _stage("checkpoint", "reached checkpoint"):
+                    store_graph(graph)
 
-    if graph.stage == -4:
-        piles = graph.piles
-        all_overlaps = find_overlaps_and_repetitive_regions(
-            index, readset, cfg, piles
-        )
-        if stagedump.enabled():
-            stagedump.dump(
-                "construct/find_overlaps_and_repetitive_regions",
-                **stagedump.pile_stats(piles),
-                **stagedump.overlap_stats(all_overlaps),
+        if graph.stage == -4:
+            piles = graph.piles
+            all_overlaps = find_overlaps_and_repetitive_regions(
+                index, readset, cfg, piles
             )
-        all_overlaps = resolve_repeat_induced_overlaps(
-            piles, all_overlaps, readset
-        )
-        if stagedump.enabled():
-            stagedump.dump(
-                "construct/resolve_repeat_induced_overlaps",
-                **stagedump.overlap_stats(all_overlaps),
+            if stagedump.enabled():
+                stagedump.dump(
+                    "construct/find_overlaps_and_repetitive_regions",
+                    **stagedump.pile_stats(piles),
+                    **stagedump.overlap_stats(all_overlaps),
+                )
+            all_overlaps = resolve_repeat_induced_overlaps(
+                piles, all_overlaps, readset
             )
-        construct_assembly_graph(graph, piles, all_overlaps, readset)
-        if stagedump.enabled():
-            stagedump.dump(
-                "construct/construct_assembly_graph",
-                **stagedump.graph_stats(graph),
-            )
-        graph.stage += 1
-        if checkpoints:
-            from raven_tpu_torch.graph.binary import store_graph
+            if stagedump.enabled():
+                stagedump.dump(
+                    "construct/resolve_repeat_induced_overlaps",
+                    **stagedump.overlap_stats(all_overlaps),
+                )
+            construct_assembly_graph(graph, piles, all_overlaps, readset)
+            if stagedump.enabled():
+                stagedump.dump(
+                    "construct/construct_assembly_graph",
+                    **stagedump.graph_stats(graph),
+                )
+            graph.stage += 1
+            if checkpoints:
+                from raven_tpu_torch.graph.binary import store_graph
 
-            t0 = time.perf_counter()
-            store_graph(graph)
-            _log("reached checkpoint", t0)
-
-    _log("", total_t0)
+                with _stage("checkpoint", "reached checkpoint"):
+                    store_graph(graph)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from raven_tpu_torch.overlap.types import OVERLAP_DTYPE
+from raven_tpu_torch.utils import trace
 
 DIAGONAL_BAND = 500
 MIN_MATCHES = 4
@@ -220,9 +221,9 @@ def chain_oversize_groups_host(anchors, st, sz, k):
 
 def _assemble_overlaps(cols, host_rows=None, host_gids=None):
     """Build the {read_id: overlaps} dict from the emission-ordered device
-    columns (gid, qid, tid, lhs_b, lhs_e, rhs_b, rhs_e, cnt, same as numpy),
-    merging host-chained oversize groups at their gid rank."""
-    gid, qid, tid, lhs_b, lhs_e, rhs_b, rhs_e, cnt, same = cols
+    columns (gid, qid, tid, lhs_b, lhs_e, rhs_b, rhs_e, cnt, same), brought
+    to the host, merging host-chained oversize groups at their gid rank."""
+    gid, qid, tid, lhs_b, lhs_e, rhs_b, rhs_e, cnt, same = (c.cpu().numpy() for c in cols)
     big = np.zeros(gid.size, dtype=OVERLAP_DTYPE)
     big["lhs_id"] = qid
     big["lhs_begin"] = lhs_b
@@ -244,9 +245,10 @@ def _assemble_overlaps(cols, host_rows=None, host_gids=None):
 
 
 def chain_from_prepared(prepared, k):
-    """Finish chaining from `_prepare_core` outputs: size bucketing, the
-    per-bucket LIS, the (gid, piece) emission sort, host assembly of the
-    per-read overlap dict."""
+    """Finish chaining from `_prepare_core` outputs on the device: size
+    bucketing, the per-bucket LIS, the (gid, piece) emission sort.  Returns
+    _assemble_overlaps's arguments: the emitted columns on the device and
+    the host-chained oversize groups' rows and gids (None for none)."""
     anchors, (gstart, gsize) = prepared
     dev = gstart.device
     bidx = torch.bucketize(gsize, torch.tensor(BUCKETS, device=dev))
@@ -268,13 +270,10 @@ def chain_from_prepared(prepared, k):
         cat = [torch.cat([p[c] for p in parts]) for c in range(10)]
         # emission order: group rank (its start in the global sort), piece
         order = torch.argsort((cat[0] << 16) | cat[1])
-        gid, _, *rest = (c[order].cpu().numpy() for c in cat)
-        cols = (gid, *rest)
+        cols = [c[order] for i, c in enumerate(cat) if i != 1]
     else:
-        cols = tuple(np.zeros(0, np.int64) for _ in range(9))
-    if cols[0].size == 0 and (host_rows is None or not host_rows.size):
-        return {}
-    return _assemble_overlaps(cols, host_rows, host_gids)
+        cols = [torch.zeros(0, dtype=torch.int64, device=dev)] * 9
+    return cols, host_rows, host_gids
 
 
 def chain_matches_device(q_id, q_pos, t_id, t_pos, same, k):
@@ -282,9 +281,13 @@ def chain_matches_device(q_id, q_pos, t_id, t_pos, same, k):
 
     Inputs are int tensors (padded rows: q_id < 0).  Returns a dict
     {read_id: structured overlap array} identical to the host
-    chain_per_read result."""
+    chain_per_read result.  The device work is the span "index.chain",
+    the overlaps' return and split by read "index.unpack" {overlaps}."""
     if q_id.numel() == 0:
         return {}
-    return chain_from_prepared(
-        _prepare_core(q_id, q_pos, t_id, t_pos, same), k
-    )
+    with trace.span("index.chain"):
+        chained = chain_from_prepared(_prepare_core(q_id, q_pos, t_id, t_pos, same), k)
+    with trace.span("index.unpack") as s:
+        out = _assemble_overlaps(*chained)
+        s["overlaps"] = sum(int(v.size) for v in out.values())
+    return out

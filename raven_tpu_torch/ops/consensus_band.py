@@ -39,6 +39,7 @@ import torch
 from raven_tpu_torch.device import resolve_device
 from raven_tpu_torch.ops import band_cuda
 from raven_tpu_torch.parallel.mesh import local_blocks, sum_on_first
+from raven_tpu_torch.utils import trace
 
 NEG = -(1 << 20)
 MATCH, MISMATCH, GAP = 3, -5, -4
@@ -263,38 +264,51 @@ def band_window_consensus(
     `group` windows and `max_rows` fragment rows; each group's refinement
     loop is queued on the device in turn and the tokens are collected once
     every group is queued.
+
+    The call is the span "band.call" {windows, groups}; each group's host
+    prep "band.prepare" {windows, fragments, rows: the padded B}, its upload
+    "band.upload" {bytes} and its refinement loop's launches "band.queue"
+    {iterations}; the tokens' return, which waits for the card,
+    "band.collect".
     """
-    device = mesh.first if mesh is not None else resolve_device(device)
-    n_dev = mesh.size if mesh is not None else 1
-    n_win = len(windows)
-    windows = [
-        (w[0], w[1], w[2], w[3] if len(w) > 3 else None) for w in windows
-    ]
-    out: list = [None] * n_win
-    pending = []  # (win_lo, n_local, toks, lens) on the device
+    with trace.span("band.call", windows=len(windows)) as call:
+        device = mesh.first if mesh is not None else resolve_device(device)
+        n_dev = mesh.size if mesh is not None else 1
+        n_win = len(windows)
+        windows = [
+            (w[0], w[1], w[2], w[3] if len(w) > 3 else None) for w in windows
+        ]
+        out: list = [None] * n_win
+        pending = []  # (win_lo, n_local, toks, lens) on the device
 
-    wi = 0
-    while wi < n_win:
-        # group boundary: window count AND fragment-row budget
-        lo = wi
-        rows = 0
-        while wi < n_win and (wi - lo) < group:
-            r = len(windows[wi][1])
-            if rows + r > max_rows and wi > lo:
-                break
-            rows += r
-            wi += 1
-        grp = windows[lo:wi]
-        arrays, NWIN = _prepare_group(grp, t_pad, q_pad, bw, n_dev)
-        toks, lens = resident_consensus(
-            *(_upload(a, device) for a in arrays),
-            t_pad, bw, NWIN, int(iterations), mesh,
-        )
-        pending.append((lo, len(grp), toks, lens))
+        wi = 0
+        while wi < n_win:
+            # group boundary: window count AND fragment-row budget
+            lo = wi
+            rows = 0
+            while wi < n_win and (wi - lo) < group:
+                r = len(windows[wi][1])
+                if rows + r > max_rows and wi > lo:
+                    break
+                rows += r
+                wi += 1
+            grp = windows[lo:wi]
+            with trace.span("band.prepare", windows=len(grp), fragments=rows) as s:
+                arrays, NWIN = _prepare_group(grp, t_pad, q_pad, bw, n_dev)
+                s["rows"] = arrays[2].shape[0]
+            with trace.span("band.upload", bytes=sum(a.nbytes for a in arrays)):
+                uploaded = [_upload(a, device) for a in arrays]
+            with trace.span("band.queue", iterations=int(iterations)):
+                toks, lens = resident_consensus(
+                    *uploaded, t_pad, bw, NWIN, int(iterations), mesh,
+                )
+            pending.append((lo, len(grp), toks, lens))
 
-    for lo, n_local, toks, lens in pending:
-        toks_np = toks.cpu().numpy()
-        lens_np = lens.cpu().numpy()
-        for gi in range(n_local):
-            out[lo + gi] = toks_np[gi, : int(lens_np[gi])].astype(np.uint8)
+        with trace.span("band.collect"):
+            for lo, n_local, toks, lens in pending:
+                toks_np = toks.cpu().numpy()
+                lens_np = lens.cpu().numpy()
+                for gi in range(n_local):
+                    out[lo + gi] = toks_np[gi, : int(lens_np[gi])].astype(np.uint8)
+        call["groups"] = len(pending)
     return out

@@ -42,6 +42,7 @@ from raven_tpu_torch.ops.sketch import (
     sketch_segments,
     unpack_codes,
 )
+from raven_tpu_torch.utils import trace
 
 SEG_WIDTH = 2048
 # distance cap of the join; occurrence > MAX_D + 1 declines to the host
@@ -283,6 +284,7 @@ class DeviceIndex:
         cols = self.join_columns(occurrence, batch, need_flags, filtered_out)
         return None if cols is None else _finish_join(cols, chain_k)
 
+    @trace.spanned("index.join")
     def join_columns(self, occurrence: int, batch: np.ndarray, need_flags: bool,
                      filtered_out: dict | None = None):
         """distance_join's match columns, left on the device; None on a

@@ -1,13 +1,10 @@
 """Consensus phase driver (reference RavenLib/src/polish.cc).
 
 A copy of raven_tpu/polish/__init__.py that threads the device into the
-Polisher and can report each round's wall.
+Polisher; each round is the span "polish.round" with its engine.
 """
 
 from __future__ import annotations
-
-import sys
-import time
 
 import numpy as np
 
@@ -15,6 +12,7 @@ from raven_tpu_torch.config import PolishCfg
 from raven_tpu_torch.graph.common import get_unitigs, unitig_record_name
 from raven_tpu_torch.io.readset import reverse_complement
 from raven_tpu_torch.polish.polisher import Polisher  # noqa: F401
+from raven_tpu_torch.utils import trace
 
 CIRCULAR_ROTATION = 0.42  # polish.cc:62
 
@@ -25,15 +23,14 @@ def polish(
     cfg: PolishCfg | None = None,
     checkpoints: bool = False,
     device=None,
-    timings: dict | None = None,
 ):
     """Polish unitigs for cfg.num_rounds rounds (polish.cc:10-86) on
     `device` (CUDA unless the caller asks for the CPU).
 
     Stage semantics: one round per stage increment starting at 0; resuming
-    mid-polish continues with the remaining rounds.  `timings`, when given,
-    receives "polish_rounds": one {"round", "engine", "wall_s"} per
-    round run, engine "device" or "host" (Polisher.last_engine).
+    mid-polish continues with the remaining rounds.  Each round is a span
+    "polish.round" whose counts hold the round and its engine, "device" or
+    "host" (Polisher.last_engine).
     """
     cfg = cfg or PolishCfg()
     if len(readset) == 0 or cfg.num_rounds == 0:
@@ -78,14 +75,9 @@ def polish(
         polisher.use_device_consensus = (
             None if graph.stage == cfg.num_rounds - 1 else False
         )
-        t0 = time.perf_counter()
-        results = polisher.polish(targets, readset, include_unpolished=False)
-        if timings is not None:
-            timings.setdefault("polish_rounds", []).append({
-                "round": graph.stage,
-                "engine": polisher.last_engine,
-                "wall_s": time.perf_counter() - t0,
-            })
+        with trace.span("polish.round", round=graph.stage) as s:
+            results = polisher.polish(targets, readset, include_unpolished=False)
+            s["engine"] = polisher.last_engine
 
         new_targets = []
         new_nodes = []
@@ -125,10 +117,6 @@ def polish(
         if checkpoints:
             from raven_tpu_torch.graph.binary import store_graph
 
-            t0 = time.perf_counter()
-            store_graph(graph)
-            print(
-                f"[raven_tpu_torch::Graph::Polish] reached checkpoint "
-                f"{time.perf_counter() - t0:.6f}s",
-                file=sys.stderr,
-            )
+            with trace.span("polish.checkpoint",
+                            log="[raven_tpu_torch::Graph::Polish] reached checkpoint"):
+                store_graph(graph)

@@ -30,9 +30,6 @@ plus the racon library dependency it drives):
 
 from __future__ import annotations
 
-import sys
-import time
-
 import numpy as np
 import torch
 
@@ -43,12 +40,14 @@ from raven_tpu_torch.overlap.types import overlap_length
 from raven_tpu_torch.ops.align_dp import batched_boundary_crossings
 from raven_tpu_torch.ops.poa import poa_consensus
 from raven_tpu_torch.parallel.mesh import chosen_mesh
+from raven_tpu_torch.utils import trace
 
 MAP_K = 15  # read->contig mapping k-mer length (racon's ram default)
 WINDOW_LEN = 500  # polish.cc:44 (racon window_length)
 ERROR_THRESHOLD = 0.3  # polish.cc:44
 MIN_FRAGMENT = int(WINDOW_LEN * 0.02)
 POA_BATCH_TARGET = 256  # device batch size for the JAX POA path
+_LOG = "[raven_tpu_torch::Polisher]"
 
 
 _POA_JOBS = None
@@ -363,72 +362,65 @@ class Polisher:
         where name' carries the ` XC:f:<fraction>` suffix; unpolished
         targets are included only when include_unpolished (the raven call
         site passes False, polish.cc:51)."""
-        t0 = time.perf_counter()
-        overlaps = self._find_overlaps(targets, readset)
-        frag_map = self._fragments(overlaps, targets, readset)
-        print(
-            f"[raven_tpu_torch::Polisher] aligned {len(overlaps)} reads "
-            f"{time.perf_counter() - t0:.6f}s",
-            file=sys.stderr,
-        )
+        with trace.span("polish.align") as s:
+            overlaps = self._find_overlaps(targets, readset)
+            frag_map = self._fragments(overlaps, targets, readset)
+            s["reads"] = len(overlaps)
+            s.log = f"{_LOG} aligned {len(overlaps)} reads"
 
-        t0 = time.perf_counter()
-        w = self.window_len
-        per_target = []  # (name, codes, pieces, jobs, polished_count)
-        all_jobs = []  # (target_idx, slot, backbone, frag_codes, weights)
-        for tid, (name, codes) in enumerate(targets):
-            windows = frag_map.get(tid, {})
-            num_windows = (codes.size + w - 1) // w
-            polished_count = 0
-            pieces = []
-            for win_id in range(num_windows):
-                backbone = codes[win_id * w : min((win_id + 1) * w, codes.size)]
-                frags = sorted(
-                    windows.get(win_id, []), key=lambda f: f[0]
-                )
-                if len(frags) < 2:  # racon: < 3 sequences incl. backbone
-                    pieces.append(backbone)
-                    continue
-                polished_count += 1
-                frag_codes = [f[1] for f in frags]
-                spans = [
-                    (f[0], f[3] if len(f) > 3 else backbone.size)
-                    for f in frags
-                ]
-                if all(f[2] is not None for f in frags):
-                    # spoa weight semantics: the raw phred value (racon
-                    # passes quality chars; spoa uses char - 33)
-                    weights = [
-                        np.minimum(f[2].astype(np.int64), 255).astype(
-                            np.uint8
-                        )
+        with trace.span("polish.generate", log=f"{_LOG} generated consensus"):
+            w = self.window_len
+            per_target = []  # (name, codes, pieces, jobs, polished_count)
+            all_jobs = []  # (target_idx, slot, backbone, frag_codes, weights)
+            for tid, (name, codes) in enumerate(targets):
+                windows = frag_map.get(tid, {})
+                num_windows = (codes.size + w - 1) // w
+                polished_count = 0
+                pieces = []
+                for win_id in range(num_windows):
+                    backbone = codes[win_id * w : min((win_id + 1) * w, codes.size)]
+                    frags = sorted(
+                        windows.get(win_id, []), key=lambda f: f[0]
+                    )
+                    if len(frags) < 2:  # racon: < 3 sequences incl. backbone
+                        pieces.append(backbone)
+                        continue
+                    polished_count += 1
+                    frag_codes = [f[1] for f in frags]
+                    spans = [
+                        (f[0], f[3] if len(f) > 3 else backbone.size)
                         for f in frags
                     ]
-                else:
-                    weights = None
-                pieces.append(None)
-                all_jobs.append(
-                    (tid, len(pieces) - 1, backbone, frag_codes, weights,
-                     spans)
-                )
-            per_target.append((name, codes, pieces, polished_count, num_windows))
+                    if all(f[2] is not None for f in frags):
+                        # spoa weight semantics: the raw phred value (racon
+                        # passes quality chars; spoa uses char - 33)
+                        weights = [
+                            np.minimum(f[2].astype(np.int64), 255).astype(
+                                np.uint8
+                            )
+                            for f in frags
+                        ]
+                    else:
+                        weights = None
+                    pieces.append(None)
+                    all_jobs.append(
+                        (tid, len(pieces) - 1, backbone, frag_codes, weights,
+                         spans)
+                    )
+                per_target.append((name, codes, pieces, polished_count, num_windows))
 
-        consensi = self._run_consensus(all_jobs)
-        for (tid, slot, *_), cons in zip(all_jobs, consensi):
-            per_target[tid][2][slot] = cons
+            with trace.span("polish.consensus", windows=len(all_jobs)):
+                consensi = self._run_consensus(all_jobs)
+            for (tid, slot, *_), cons in zip(all_jobs, consensi):
+                per_target[tid][2][slot] = cons
 
-        results = []
-        for name, codes, pieces, polished_count, num_windows in per_target:
-            fraction = polished_count / max(num_windows, 1)
-            if fraction == 0 and not include_unpolished:
-                continue
-            polished = np.concatenate(pieces) if pieces else codes
-            results.append((f"{name} XC:f:{fraction:.6f}", polished))
-        print(
-            f"[raven_tpu_torch::Polisher] generated consensus "
-            f"{time.perf_counter() - t0:.6f}s",
-            file=sys.stderr,
-        )
+            results = []
+            for name, codes, pieces, polished_count, num_windows in per_target:
+                fraction = polished_count / max(num_windows, 1)
+                if fraction == 0 and not include_unpolished:
+                    continue
+                polished = np.concatenate(pieces) if pieces else codes
+                results.append((f"{name} XC:f:{fraction:.6f}", polished))
         return results
 
     # ------------------------------------------------------------------

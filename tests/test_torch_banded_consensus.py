@@ -24,7 +24,7 @@ from raven_tpu_torch.ops import banded_cuda as tbc  # noqa: E402
 from raven_tpu_torch.ops import consensus_device as tcd  # noqa: E402
 from raven_tpu_torch.polish.polisher import Polisher as TPolisher  # noqa: E402
 from tests.conftest import random_genome, sample_reads  # noqa: E402
-from tests.test_torch_polish import _run_both_clis, setup  # noqa: E402, F401
+from tests.test_torch_polish import _engines, _run_both_clis, setup  # noqa: E402, F401
 
 # raven_tpu's polisher reads these; unset, it takes the path the port copies
 _JAX_ENV = (
@@ -416,7 +416,7 @@ def test_cli_banded_polish_contigs_byte_identical(banded_reads_path, extra, engi
     without, raven_tpu's hybrid schedule, which on --device cpu (and on
     raven_tpu's CPU backend) takes the host POA in both rounds."""
     flags = ["-p", "2", *extra, "--disable-checkpoints"]
-    got, want, timings = _run_both_clis(banded_reads_path, flags, monkeypatch, capsys)
+    got, want, spans = _run_both_clis(banded_reads_path, flags, monkeypatch, capsys)
     assert got.count(">") == 1
     assert got == want
-    assert [r["engine"] for r in timings["polish_rounds"]] == engines
+    assert _engines(spans) == engines

@@ -7,9 +7,12 @@ engine), the host POA round, and the CLI's contig FASTA for `-p 2` and `-p 2
 anchored banded engine (--device-banded-alignment) is held to raven_tpu's in
 tests/test_torch_banded_consensus.py."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 jax = pytest.importorskip("jax")
 
@@ -24,6 +27,7 @@ from raven_tpu_torch import config as tconfig  # noqa: E402
 from raven_tpu_torch.graph import layout as tlayout  # noqa: E402
 from raven_tpu_torch.io import ReadSet as TReadSet  # noqa: E402
 from raven_tpu_torch.polish.polisher import Polisher as TPolisher  # noqa: E402
+from raven_tpu_torch.utils import trace  # noqa: E402
 from tests.conftest import random_genome, sample_reads  # noqa: E402
 
 
@@ -136,11 +140,14 @@ def _globals():
     ]
 
 
+# the port's stage-log lines: a bracketed tag, the stage's words, seconds
+STAGE_LINE = re.compile(r"\[raven_tpu(_torch)?::[A-Za-z:]*\]( [^\n]*)? \d+\.\d{6}s")
+
+
 def _run_both_clis(reads_path, flags, monkeypatch, capsys):
     """Both CLIs on the same reads; returns (port stdout, raven_tpu stdout,
-    the port's timings)."""
+    the port's spans, recorded under a CPU profiler)."""
     before = _globals()
-    timings = {}
     # both CLIs set their package's process-wide settings (-t, -u): restore
     # them afterwards, or later tests in this process run with one worker
     with monkeypatch.context() as m:
@@ -150,24 +157,41 @@ def _run_both_clis(reads_path, flags, monkeypatch, capsys):
                 m.setattr(g, name, getattr(g, name))
         tlayout.reset_seed()
         capsys.readouterr()
-        assert tcli.main([str(reads_path), *flags, "--device", "cpu"], timings=timings) == 0
-        got = capsys.readouterr().out
+        trace.clear()
+        with profile(activities=[ProfilerActivity.CPU]):
+            assert tcli.main([str(reads_path), *flags, "--device", "cpu"]) == 0
+        spans = list(trace.spans())
+        trace.clear()
+        got, err = capsys.readouterr()
         jlayout.reset_seed()
         assert jcli.main([str(reads_path), *flags]) == 0
         want = capsys.readouterr().out
         assert tconfig.GLOBALS.num_threads == jconfig.GLOBALS.num_threads == 1
     assert _globals() == before
     assert got.startswith(">")
-    return got, want, timings
+    lines = err.splitlines()
+    assert all(STAGE_LINE.fullmatch(ln) for ln in lines), lines
+    assert re.fullmatch(r"\[raven_tpu_torch::\] loaded \d+ sequences \d+\.\d{6}s", lines[0])
+    assert re.fullmatch(r"\[raven_tpu_torch::\] \d+\.\d{6}s", lines[-1])
+    rounds = [r for r in spans if r.name == "polish.round"]
+    polisher = [ln for ln in lines if ln.startswith("[raven_tpu_torch::Polisher] ")]
+    assert [ln.split()[1] for ln in polisher] == ["aligned", "generated"] * len(rounds)
+    return got, want, spans
+
+
+def _engines(spans):
+    return [r.counts["engine"] for r in sorted(spans, key=lambda r: r.start)
+            if r.name == "polish.round"]
 
 
 def test_cli_polish_contigs_byte_identical(reads_path, monkeypatch, capsys):
     flags = ["-p", "2", "--device-poa-batches", "1", "--device-alignment-batches", "1",
              "--disable-checkpoints"]
-    got, want, timings = _run_both_clis(reads_path, flags, monkeypatch, capsys)
+    got, want, spans = _run_both_clis(reads_path, flags, monkeypatch, capsys)
     assert got == want
-    assert [r["engine"] for r in timings["polish_rounds"]] == ["device", "device"]
-    assert timings["polish_s"] > 0
+    assert _engines(spans) == ["device", "device"]
+    (polish,) = [r for r in spans if r.name == "cli.polish"]
+    assert polish.end > polish.start
 
 
 def test_cli_default_polish_contigs_byte_identical(reads_path, monkeypatch, capsys):
@@ -176,9 +200,9 @@ def test_cli_default_polish_contigs_byte_identical(reads_path, monkeypatch, caps
     device is a card; with --device cpu (and raven_tpu on a CPU backend)
     both rounds take the host POA."""
     flags = ["-p", "2", "--disable-checkpoints"]
-    got, want, timings = _run_both_clis(reads_path, flags, monkeypatch, capsys)
+    got, want, spans = _run_both_clis(reads_path, flags, monkeypatch, capsys)
     assert got == want
-    assert [r["engine"] for r in timings["polish_rounds"]] == ["host", "host"]
+    assert _engines(spans) == ["host", "host"]
 
 
 def test_bench_and_metric_copies_match():

@@ -19,7 +19,7 @@ from raven_tpu_torch.overlap.engine import MinimizerIndex as TIndex
 from raven_tpu_torch.parallel import mesh as tmesh
 from raven_tpu_torch.parallel.sharded_index import ShardedIndex
 from raven_tpu_torch.polish.polisher import Polisher as TPolisher
-from tests.test_torch_polish import _run_both_clis
+from tests.test_torch_polish import _engines, _run_both_clis
 
 # every switch of raven_tpu these tests set; unset, raven_tpu takes the
 # path the port takes by default
@@ -182,8 +182,8 @@ def check_cli_route(reads_path, route, monkeypatch, capsys):
         flags += ["--device-poa-batches", str(batches)]
     else:
         _force_device_consensus(monkeypatch)
-    got, want, timings = _run_both_clis(reads_path, flags, monkeypatch, capsys)
+    got, want, spans = _run_both_clis(reads_path, flags, monkeypatch, capsys)
     assert got == want
-    assert [r["engine"] for r in timings["polish_rounds"]] == engines
+    assert _engines(spans) == engines
     assert len(calls) == engines.count("device")
     assert all({k: c[k] for k in kw} == kw for c in calls)
