@@ -99,6 +99,12 @@ failure:
      runs of 20-60 bases whose left moves cross K3's 16-lane strips, and
      walks from row 0; median times over CUDA events beside the bound, K3's
      and K4's SASS loop sizes and K4's serial floor;
+ 7b. band_pack (csrc/band.cu), the fragment rows K3 and K4 read laid out
+     on the card from one flat upload a group, against
+     pack_shifted_fragments on the host, byte for byte: the bank's four
+     groups, spans with weights over the cap, and 128 windows x 52
+     fragments (8,192 rows), its one-call and device time beside its bound
+     by bytes, and the group's host prep before and after;
   8. kernels K9 (anchored banded forward) and K10 (banded walk),
      csrc/banded.cu, against their plain torch versions on the card, bit
      for bit on every output (move words, band starts, end scores, row-0
@@ -291,7 +297,8 @@ K10_INSTR_PER_STEP = 6
 # integer instructions of at least 4 cycles and one load, at 1.98 GHz.
 K10_CHAIN_CYCLES = 9 * 4 + 30
 BANDED_T, BANDED_Q, BANDED_BW = 640, 768, 256  # device_window_consensus's shapes
-BAND_DEFAULT_LAUNCHES = 64  # 16 groups of up to 128 windows x 4 iterations
+BAND_DEFAULT_GROUPS = 16  # groups of up to 128 windows: band_pack launches once each
+BAND_DEFAULT_LAUNCHES = BAND_DEFAULT_GROUPS * 4  # K3 and K4: 4 iterations a group
 BAND_T, BAND_BW = 640, 256  # the shift-banded consensus's t_pad and band
 # phase 13: the band widths beside 256 that K3/K4 are timed at (raven_tpu
 # takes any multiple of 16; every one up to 512 is held bit for bit), and
@@ -1180,6 +1187,7 @@ def cli_run(device, work_dir, genome_size, repeat=None, flags=("-p", "0")) -> di
            "k2_launches": consensus_cuda.LAUNCHES,
            "k3_launches": band_cuda.LAUNCHES["band_forward"],
            "k4_launches": band_cuda.LAUNCHES["mask_walk_votes"],
+           "pack_launches": band_cuda.LAUNCHES["band_pack"],
            "k9_launches": banded_cuda.LAUNCHES["nw_moves_banded"],
            "k10_launches": banded_cuda.LAUNCHES["traceback_banded"],
            "k12_launches": layout_cuda.LAUNCHES["n_body"],
@@ -1682,12 +1690,52 @@ def band_mutate(rng, codes, sub, dele, ins):
 def band_layout(grp, BW: int, q_pad: int = 768, T: int = BAND_T):
     """A group of windows ((backbone, fragments, weights[, spans]) each) as
     band_window_consensus lays it out at t_pad T and a band of BW (its
-    _prepare_group): numpy (cw, t_lens, fw_sh, q_lens, r0)."""
+    _prepare_group, then band_pack's plain version): numpy (cw, t_lens,
+    fw_sh, q_lens, r0)."""
     from raven_tpu_torch.ops import consensus_band as cb
 
     grp = [(w[0], w[1], w[2], w[3] if len(w) > 3 else None) for w in grp]
-    (cons0, lens0, fw_sh, q_lens, r0, win), _ = cb._prepare_group(grp, T, q_pad, BW)
+    (cons0, lens0, fw_sh, q_lens, r0, win), _ = cb.host_layout(grp, T, q_pad, BW)
     return cons0[win], lens0[win], fw_sh, q_lens, r0
+
+
+def band_spanned_windows(n: int = 128):
+    """n windows of 500 bases x 30 fragments, 40% of them partial (read
+    ends) placed at r0 > 0, as in tests/test_consensus_band.py's production
+    case, with weights up to 255."""
+    rng = np.random.default_rng(5)
+    spanned = []
+    for _ in range(n):
+        truth = rng.integers(0, 4, 500).astype(np.uint8)
+        frags, spans = [], []
+        for _ in range(30):
+            s, e = 0, 500
+            if rng.random() < 0.4:
+                s = int(rng.integers(0, 300))
+                e = int(rng.integers(s + 150, 501))
+            frags.append(band_mutate(rng, truth[s:e], 0.04, 0.05, 0.05))
+            spans.append((s, e))
+        wts = [rng.integers(1, 256, f.size).astype(np.uint8) for f in frags]
+        spanned.append((band_mutate(rng, truth, 0.04, 0.05, 0.05), frags, wts, spans))
+    return spanned
+
+
+def band_rows_host(grp, q_pad: int, B_pad: int, BW: int = BAND_BW, T: int = BAND_T):
+    """A group's fragment rows as the host packed them before band_pack:
+    pack_shifted_fragments over its fragments one by one (the layout's
+    specification): numpy fw_sh [B_pad, T + BW + 1], q_lens [B_pad]."""
+    from raven_tpu_torch.ops import consensus_band as cb
+
+    frags = [np.asarray(f, np.uint8) for w in grp for f in w[1]]
+    wts = [np.asarray(w[2][i], np.uint8) if w[2] is not None else np.ones(len(f), np.uint8)
+           for w in grp for i, f in enumerate(w[1])]
+    r0 = np.clip([int(w[3][i][0]) if len(w) > 3 and w[3] is not None else 0
+                  for w in grp for i in range(len(w[1]))], 0, T - 1)
+    fw_sh = np.zeros((B_pad, T + BW + 1), np.uint8)
+    q_lens = np.zeros(B_pad, np.int32)
+    fw_sh[: len(frags)], q_lens[: len(frags)] = cb.pack_shifted_fragments(
+        frags, wts, r0, q_pad, T, BW)
+    return fw_sh, q_lens
 
 
 def band_cases():
@@ -1706,23 +1754,7 @@ def band_cases():
 
     bank = layout(windows[:128])
     cases = [("bank group", bank), ("ragged B", tuple(a[:1237] for a in bank))]
-    # partial fragments (read ends) placed at r0 > 0, as in
-    # tests/test_consensus_band.py's production case, weights up to 255
-    rng = np.random.default_rng(5)
-    spanned = []
-    for _ in range(128):
-        truth = rng.integers(0, 4, 500).astype(np.uint8)
-        frags, spans = [], []
-        for _ in range(30):
-            s, e = 0, 500
-            if rng.random() < 0.4:
-                s = int(rng.integers(0, 300))
-                e = int(rng.integers(s + 150, 501))
-            frags.append(band_mutate(rng, truth[s:e], 0.04, 0.05, 0.05))
-            spans.append((s, e))
-        wts = [rng.integers(1, 256, f.size).astype(np.uint8) for f in frags]
-        spanned.append((band_mutate(rng, truth, 0.04, 0.05, 0.05), frags, wts, spans))
-    cases.append(("spans, weights over the cap", layout(spanned)))
+    cases.append(("spans, weights over the cap", layout(band_spanned_windows())))
     # every other fragment twice over: q_len ~1,000 > T + BW/2 - r0 = 768
     doubled = [
         (bb, [np.concatenate([f, f]) if i % 2 else f for i, f in enumerate(fr)],
@@ -1834,6 +1866,73 @@ def phase_band(device):
             k4 = {"max_abs_err": err4, "ms": ms4, "plain_ms": plain4, "device_ms": dev4,
                   "bound_ms": b4, "bound_by": by4, "shape": [B, T, BW]}
     return k3, k4
+
+
+def phase_band_pack(device):
+    """band_pack on the card against pack_shifted_fragments on the host,
+    byte for byte: the window bank's four groups of 128 windows (30
+    fragments each, 4,096 rows), a group with spans and weights over the
+    cap, and a group of 128 windows x 52 fragments without weights (the
+    polish cell's depth, 8,192 rows), each uploaded as band_window_consensus
+    uploads it; then at the 8,192 rows one call (CUDA events, the wrapper's
+    host work within), the kernel's device time beside its bound by bytes,
+    its plain version's time on the card, and the host prep before and
+    after (the host clock).  Returns the kernels entry fields."""
+    import torch
+
+    from raven_tpu_torch.ops import band_cuda as bc
+    from raven_tpu_torch.ops import consensus_band as cb
+    from raven_tpu_torch.utils.synth import make_windows
+
+    T, BW, Q = BAND_T, BAND_BW, 768
+    bank, _ = make_windows(512, 500, 30, np.random.default_rng(21))
+    deep, _ = make_windows(128, 500, 52, np.random.default_rng(22))
+    groups = [(f"bank group {i}", bank[128 * i: 128 * (i + 1)]) for i in range(4)]
+    # the deep group without weights, as a FASTA run's groups and the polish cell's
+    groups += [("spans, weights over the cap", band_spanned_windows()),
+               ("52 fragments a window, no weights", [(w[0], w[1], None) for w in deep])]
+    before = bc.LAUNCHES["band_pack"]
+    for name, grp in groups:
+        grp = [(w[0], w[1], w[2], w[3] if len(w) > 3 else None) for w in grp]
+        stage, v, _ = cb._prepare_group(grp, T, Q, BW, pinned=True)
+        d = cb._upload(stage, v, torch.device(device))
+        args = (d["bases"], d["wts"], d["src"], d["q_lens"], d["r0"], T, BW)
+        got = bc.band_pack(*args)
+        torch.cuda.synchronize()
+        B = got.shape[0]
+        want, ql = band_rows_host(grp, Q, B)
+        diff = int((got.cpu().numpy() != want).sum())
+        require(diff == 0 and np.array_equal(v["q_lens"], ql),
+                f"band_pack differs from pack_shifted_fragments at {name} [{B}, {T}, {BW}] "
+                f"({diff} bytes)")
+        n = np.minimum(ql, np.maximum(T + BW + 1 - (v["r0"] + BW // 2 + 1), 0))
+        log(f"band_pack {name} [B, T, BW] = [{B}, {T}, {BW}]: byte-equal to "
+            f"pack_shifted_fragments; {int(n.sum())} fragment bytes, weights "
+            f"{'uploaded' if d['wts'] is not None else 'none (1)'}, {stage.nbytes} B staged")
+    launched = bc.LAUNCHES["band_pack"] - before
+    require(launched == len(groups), f"band_pack launched {launched} times, not {len(groups)}")
+    # the main path's shape: the deep group, as the polish cell's groups
+    ms = cuda_ms(lambda: bc.band_pack(*args))
+    dev = device_ms(lambda: bc.band_pack(*args), "band_pack_kernel")
+    plain = cuda_ms(lambda: bc.band_pack_plain(*args), runs=5, warmup=1)
+    nbytes = B * (T + BW + 1) + int(n.sum()) + 16 * B
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    t0 = time.perf_counter()
+    for _ in range(5):
+        cb._prepare_group(grp, T, Q, BW, pinned=True)
+    prep = (time.perf_counter() - t0) / 5 * 1e3
+    t0 = time.perf_counter()
+    band_rows_host(grp, Q, B)
+    host = (time.perf_counter() - t0) * 1e3
+    log(f"  band_pack one call {ms:.4f} ms, device {fmt_ms(dev)}, its plain version on the "
+        f"card {plain:.4f} ms; bound {bound:.4f} ms by "
+        f"bytes ({nbytes} B at {HBM_BYTES_PER_S:.3g} B/s; "
+        f"{bound / dev if dev else 0:.3f} of it reached on the device)")
+    log(f"  host prep of the group: _prepare_group {prep:.2f} ms; the previous host "
+        f"layout (pack_shifted_fragments row by row) {host:.2f} ms")
+    return {"equal": True, "ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes", "shape": [B, T, BW], "prep_ms": prep,
+            "previous_host_ms": host, "launches": launched}
 
 
 def banded_layout(windows, n_rows: int, t_pad: int = BANDED_T, q_pad: int = BANDED_Q):
@@ -2401,6 +2500,7 @@ ROUTE_KERNELS = {
     "votes_primitives": "votes_primitives_kernel",
     "votes_primitives_i32": "votes_primitives_i32_kernel",
     "band_forward": "band_forward_kernel", "band_forward_wide": "band_forward_wide_kernel",
+    "band_pack": "band_pack_kernel",
     "band_forward_global": "band_forward_global_kernel",
     "mask_walk_votes": "band_walk_kernel", "mask_walk_votes_direct": "band_walk_direct_kernel",
     "nw_moves_banded": "nw_moves_banded_kernel", "nw_moves_banded_global": "nw_moves_banded_kernel",
@@ -3104,6 +3204,7 @@ def band_consensus_split(split: dict):
 
     return device_split(split, {
         (consensus_band, "_prepare_group"): "host prep",
+        (band_cuda, "band_pack"): "pack",
         (band_cuda, "band_forward"): "K3",
         (band_cuda, "mask_walk_votes"): "K4",
         (band_cuda, "vote_tables"): "epilogue",
@@ -3294,6 +3395,9 @@ def phase_polish_default(device, work_dir, draft):
     require(run["k3_launches"] == run["k4_launches"] == BAND_DEFAULT_LAUNCHES,
             f"the default polish launched K3 {run['k3_launches']} and K4 "
             f"{run['k4_launches']} times, not {BAND_DEFAULT_LAUNCHES} each")
+    require(run["pack_launches"] == BAND_DEFAULT_GROUPS,
+            f"the default polish launched band_pack {run['pack_launches']} times, not "
+            f"once a group ({BAND_DEFAULT_GROUPS})")
     wall = run["consensus_calls"][-1]["seconds"]
     log(f"  shift-banded consensus call {wall:.3f} s: " + ", ".join(
         f"{k} {v:.4f} s" for k, v in split.items()
@@ -3586,6 +3690,7 @@ def run() -> dict:
     lay = phase_layout(device, smi, repeat_path["n_body_inputs"])
     k2 = phase_votes(device)
     k3, k4 = phase_band(device)
+    bpk = phase_band_pack(device)
     k9, k10 = phase_banded(device, k2["ms"])
     mv = phase_mesh_votes(device)
     pol = phase_polish(device, work, main_path["contigs"][0])
@@ -3677,6 +3782,15 @@ def run() -> dict:
         "shape": k3["shape"],
         "widths_bit_equal": list(BAND_SWEEP),
         "widths": widths(wid["band"], "K3"),
+    }, {
+        "name": "band_pack",
+        "route": "cuda",
+        "source": "raven_tpu_torch/csrc/band.cu",
+        "replaces": None,  # the host's pack_shifted_fragments, no TPU kernel
+        "launches": dflt["pack_launches"],
+        "launches_phase_7b": bpk["launches"],
+        "library_ms": None,
+        **{k: v for k, v in bpk.items() if k != "launches"},
     }, {
         "name": "band_walk_votes",
         "launches_multiprocess": {r: n["K4"] for r, n in mp["launches"].items()},

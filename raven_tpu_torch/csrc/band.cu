@@ -1,6 +1,7 @@
 // Shift-banded window consensus: kernel K3, the slope-1 banded NW forward,
 // and kernel K4, the reverse row walk that turns each alignment into
-// per-row votes.
+// per-row votes; and band_pack, which lays out the fragment rows they read
+// (its note is above its kernel).
 //
 // Replace raven_tpu/ops/consensus_band.py::band_forward and the row scan of
 // its mask_walk_votes (XLA scans on the TPU, not Pallas kernels) and compute
@@ -1095,6 +1096,76 @@ int launch_walk(const void* moves, const void* ends, const void* row0, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
+// band_pack: a group's shifted fragment rows, laid out on the card.
+//
+// Replaces no TPU kernel: raven_tpu packs the rows on the host
+// (consensus_band.py::pack_shifted_fragments, a loop over the fragments),
+// and the port did too, ~87 ms of host time a group of ~6,700 fragments
+// against K3 and K4's ~1 ms on the card.  The host now uploads the group's
+// fragment bytes back to back (and their weights when a window of the
+// group carries weights) with a source offset, q_len and r0 a row, and
+// this kernel writes every byte of fw_sh [B, SW], SW = T + BW + 1:
+//   fw_sh[i, c] = base | min(w, 63) << 2 for c in [off, off + n), where
+//   off = r0[i] + BW/2 + 1 and n = min(q_len[i], max(SW - off, 0)), base
+//   and w the bytes src[i] + c - off of the flat buffers (w = 1 without
+//   weights); 0 elsewhere, so the output needs no fill first.
+// What bounds it: bytes.  It writes B * SW bytes (7.35 MB at [8192, 640,
+// 256]) and reads about the fragments' bytes (~3.2 MB) and 16 B a row:
+// ~3 us at 3.35 TB/s.  Design: a thread builds 16 consecutive bytes of the
+// flattened output in registers, from the one or two rows they cross (SW
+// is odd at the engine's shapes, so rows do not start on a word), and
+// stores them as one 16-byte word (byte by byte at the ragged end or on an
+// output that is not 16-byte aligned).  Neighbouring threads take
+// neighbouring words, so a warp's store is 512 contiguous bytes and the
+// fragment bytes it reads are contiguous too.
+constexpr int kPackThreads = 256;
+constexpr int kPackBytes = 16;  // output bytes a thread
+
+__global__ void __launch_bounds__(kPackThreads)
+band_pack_kernel(const uint8_t* __restrict__ bases, const uint8_t* __restrict__ wts,
+                 const int64_t* __restrict__ src, const int32_t* __restrict__ q_lens,
+                 const int32_t* __restrict__ r0, uint8_t* __restrict__ out, long long B, int SW,
+                 int half, bool aligned) {
+  const long long total = B * SW;
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * kPackThreads + threadIdx.x) * kPackBytes;
+  if (first >= total) return;
+  long long row = first / SW;
+  int col = static_cast<int>(first - row * SW);
+  long long s = 0;
+  int off = 0, n = 0;
+  auto enter = [&](long long r) {
+    s = src[r];
+    off = r0[r] + half;
+    n = min(q_lens[r], max(SW - off, 0));
+  };
+  enter(row);
+  uint32_t word[kPackBytes / 4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < kPackBytes; ++k) {
+    if (col == SW) {
+      ++row;
+      col = 0;
+      if (row < B) enter(row);
+    }
+    const int j = col - off;
+    if (first + k < total && j >= 0 && j < n) {
+      const long long p = s + j;
+      const uint32_t w = wts != nullptr ? min(static_cast<uint32_t>(wts[p]), 63u) : 1u;
+      word[k / 4] |= ((static_cast<uint32_t>(bases[p]) | (w << 2)) & 0xFFu) << (8 * (k % 4));
+    }
+    ++col;
+  }
+  if (aligned && first + kPackBytes <= total) {
+    *reinterpret_cast<uint4*>(out + first) = make_uint4(word[0], word[1], word[2], word[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPackBytes; ++k) {  // unrolled: word stays in registers
+      if (first + k < total) out[first + k] = static_cast<uint8_t>(word[k / 4] >> (8 * (k % 4)));
+    }
+  }
+}
+
 bool supported(int T, int BW) { return T >= 1 && BW >= 16 && BW <= kMaxBW && BW % 16 == 0; }
 // K3's wide route: any T, BW up to 1024 threads of 16 lanes; its global
 // route and K4's direct one: any T, BW up to kMaxBWAny
@@ -1214,6 +1285,32 @@ int raven_band_walk_direct_launch(const void* moves, const void* ends, const voi
       static_cast<const int32_t*>(row0), static_cast<const uint8_t*>(fw_sh),
       static_cast<const int32_t*>(q_lens), static_cast<const int32_t*>(r0),
       static_cast<int32_t*>(votes), static_cast<int32_t*>(ins), B, T, BW);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches band_pack on `stream`: fw_sh [B, T + BW + 1] uint8 out from
+// the group's fragment bytes `bases` and weights `wts` (uint8, back to back;
+// wts null: every weight 1), and per row src int64 (its first byte in
+// bases), q_lens and r0 int32.  `threads` is the wrapper's pack_plan's
+// (256).  Returns the CUDA error code of the launch (0 on success).
+int raven_band_pack_launch(const void* bases, const void* wts, const void* src,
+                           const void* q_lens, const void* r0, void* out, long long B, int T,
+                           int BW, void* stream, int threads) {
+  if (B == 0) return 0;
+  const long long SW = static_cast<long long>(T) + BW + 1;
+  if (!supported_any(T, BW) || threads != kPackThreads || B < 0 || SW > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long words = (B * SW + kPackBytes - 1) / kPackBytes;
+  const long long blocks = (words + kPackThreads - 1) / kPackThreads;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned = reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  band_pack_kernel<<<static_cast<unsigned>(blocks), kPackThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(bases), static_cast<const uint8_t*>(wts),
+      static_cast<const int64_t*>(src), static_cast<const int32_t*>(q_lens),
+      static_cast<const int32_t*>(r0), static_cast<uint8_t*>(out), B, static_cast<int>(SW),
+      BW / 2 + 1, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,8 +15,15 @@ to raven_tpu's.
 where raven_tpu sums with one-hot float32 matmuls) and `band_votes` the walk
 and the epilogue together: the drop-in for raven_tpu's mask_walk_votes.
 
+`band_pack(bases, wts, src, q_lens, r0, T, BW)` lays out the fragment rows
+K3 and K4 read (fw_sh, what consensus_band.py::pack_shifted_fragments makes
+on the host) from a flat upload of a group's fragment bytes: the kernel
+band_pack in band.cu on a CUDA tensor, its plain version on a CPU tensor,
+byte for byte the same.
+
 `LAUNCHES` counts kernel launches per kernel, so a run can show that its main
-path went through the kernels, and `ROUTE_LAUNCHES` per route: `launch_plan`
+path went through the kernels, and `ROUTE_LAUNCHES` per route (band_pack has
+one, of its own name): `launch_plan`
 picks, from the shape, K3's strip kernels ("band_forward"), its wide one
 ("band_forward_wide", BW above 512 or consensus rows past a block's shared
 memory) or its global one ("band_forward_global", BW above 16,384), and
@@ -43,9 +50,40 @@ WIDE_MAX_BW = 16384
 KERNEL_MAX_BW = 1 << 27
 STRIP_MAX_BW = 512  # the strip kernels: at most a warp's 32 lanes a fragment
 WALK_STATIC_BYTES = 2 * 4 * 16 * 4  # K4's best-row tables, beside its staging
-LAUNCHES = {"band_forward": 0, "mask_walk_votes": 0}
+PACK_THREADS, PACK_BYTES = 256, 16  # band_pack: threads a block, output bytes a thread
+WCAP = 63  # the weight cap of the packed byte (2 bits base + 6 bits weight)
+LAUNCHES = {"band_forward": 0, "mask_walk_votes": 0, "band_pack": 0}
 ROUTE_LAUNCHES = {"band_forward": 0, "band_forward_wide": 0, "band_forward_global": 0,
-                  "mask_walk_votes": 0, "mask_walk_votes_direct": 0}
+                  "mask_walk_votes": 0, "mask_walk_votes_direct": 0, "band_pack": 0}
+
+
+def band_pack_plain(bases, wts, src, q_lens, r0, T: int, BW: int):
+    """The shifted packed fragment rows from a flat upload, in torch ops.
+
+    bases [N] uint8: a group's fragment bytes back to back; wts [N] uint8
+    their weights, or None for a weight of 1 everywhere; src [B] int64 each
+    row's first byte in bases; q_lens [B] (its length cut at the query pad)
+    and r0 [B] (its placement row, at least 0) int32.  Returns fw_sh [B, T +
+    BW + 1] uint8: row i holds base | min(w, 63) << 2 of its first n bytes
+    at columns off .. off + n - 1, off = r0 + BW/2 + 1, n = min(q_len,
+    max(T + BW + 1 - off, 0)), and 0 elsewhere: pack_shifted_fragments's
+    rows.  Only the n bytes of each row are gathered (one repeat_interleave
+    over the rows), not the whole [B, SW] grid."""
+    B = q_lens.shape[0]
+    SW = T + BW + 1
+    dev = q_lens.device
+    i64 = torch.int64
+    off = r0.to(i64) + BW // 2 + 1
+    n = torch.minimum(q_lens.to(i64), (SW - off).clamp(min=0))
+    out = torch.zeros(B * SW, dtype=torch.uint8, device=dev)
+    total = int(n.sum())
+    if total:
+        row = torch.repeat_interleave(torch.arange(B, device=dev), n)
+        k = torch.arange(total, device=dev) - (torch.cumsum(n, 0) - n)[row]
+        p = src.to(i64)[row] + k
+        w = wts[p].clamp(max=WCAP) << 2 if wts is not None else 4
+        out[row * SW + off[row] + k] = bases[p] | w
+    return out.view(B, SW)
 
 
 def band_forward_plain(cw, t_lens, fw_sh, q_lens, r0, T: int, BW: int):
@@ -261,6 +299,21 @@ def launch_plan(T: int, BW: int) -> tuple[tuple[str, int], tuple[str, int]]:
     return fwd, walk
 
 
+def pack_plan(B: int, T: int, BW: int) -> tuple[int, int]:
+    """band_pack's launch for B rows at [T, BW]: (blocks, threads a block),
+    a thread PACK_BYTES consecutive bytes of the [B, T + BW + 1] output.
+    Raises as check_kernel_shape (its rows feed K3 and K4), and ValueError
+    past a grid's 2^31 - 1 blocks or a row of 2^31 bytes."""
+    check_kernel_shape(T, BW)
+    SW = T + BW + 1
+    words = -(-B * SW // PACK_BYTES)
+    blocks = -(-words // PACK_THREADS)
+    if SW > 0x7FFFFFFF or blocks > 0x7FFFFFFF:
+        raise ValueError(f"band_pack takes rows of at most 2^31 - 1 bytes and grids of at "
+                         f"most 2^31 - 1 blocks, got B={B}, T={T}, BW={BW}")
+    return blocks, PACK_THREADS
+
+
 _FNS = None
 
 
@@ -289,6 +342,12 @@ def _fns():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 9 + fwd.argtypes[8:]
         fns["band_forward_global"] = fn
+        fn = lib.raven_band_pack_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ]
+        fns["band_pack"] = fn
         _FNS = lib, fns
     return _FNS
 
@@ -354,6 +413,43 @@ def _walk_kernel(moves, end_scores, row0_score, fw_sh, q_lens, r0, T: int, BW: i
     LAUNCHES["mask_walk_votes"] += 1
     ROUTE_LAUNCHES[route] += 1
     return votes, ins
+
+
+def _pack_kernel(bases, wts, src, q_lens, r0, T: int, BW: int):
+    from raven_tpu_torch import csrc
+
+    B = q_lens.shape[0]
+    N = bases.shape[0]
+    _, threads = pack_plan(B, T, BW)
+    _check((
+        ("bases", bases, torch.uint8, (N,)), ("src", src, torch.int64, (B,)),
+        ("q_lens", q_lens, torch.int32, (B,)), ("r0", r0, torch.int32, (B,)),
+    ) + ((("wts", wts, torch.uint8, (N,)),) if wts is not None else ()), q_lens.device)
+    dev = q_lens.device
+    out = torch.empty((B, T + BW + 1), dtype=torch.uint8, device=dev)  # every byte written
+    if B == 0:
+        return out
+    lib, fns = _fns()
+    with torch.cuda.device(dev):
+        err = fns["band_pack"](
+            bases.data_ptr(), wts.data_ptr() if wts is not None else None, src.data_ptr(),
+            q_lens.data_ptr(), r0.data_ptr(), out.data_ptr(), B, T, BW,
+            torch.cuda.current_stream(dev).cuda_stream, threads,
+        )
+    csrc.check(lib, err, "band pack kernel launch")
+    LAUNCHES["band_pack"] += 1
+    ROUTE_LAUNCHES["band_pack"] += 1
+    return out
+
+
+def band_pack(bases, wts, src, q_lens, r0, T: int, BW: int):
+    """band_pack on a CUDA tensor, its plain version on a CPU tensor:
+    fw_sh [B, T + BW + 1] uint8 (see band_pack_plain)."""
+    if q_lens.device.type == "cuda":
+        return _pack_kernel(bases, wts, src, q_lens, r0, T, BW)
+    if q_lens.device.type == "cpu":
+        return band_pack_plain(bases, wts, src, q_lens, r0, T, BW)
+    raise ValueError(f"no band pack kernel for device {q_lens.device}")
 
 
 def band_forward(cw, t_lens, fw_sh, q_lens, r0, T: int, BW: int):

@@ -28,10 +28,15 @@ processes each rank runs its own devices' blocks and the tables are
 all-reduced, so every rank rebuilds the same consensus.
 
 Weights are packed with the base into one uint8 (base | min(w, 63) << 2):
-quality weights cap at 63 on this engine.
+quality weights cap at 63 on this engine.  The packed rows are laid out on
+the device (band_cuda.band_pack) from one flat upload a group: the host
+only concatenates the group's fragments (pack_shifted_fragments is the
+same layout made on the host, row by row: the specification).
 """
 
 from __future__ import annotations
+
+from itertools import chain, repeat
 
 import numpy as np
 import torch
@@ -43,7 +48,7 @@ from raven_tpu_torch.utils import trace
 
 NEG = -(1 << 20)
 MATCH, MISMATCH, GAP = 3, -5, -4
-WCAP = 63  # quality weight cap (2 bits base + 6 bits weight per byte)
+WCAP = band_cuda.WCAP  # quality weight cap (2 bits base + 6 bits weight per byte)
 
 
 def pack_shifted_fragments(
@@ -192,54 +197,107 @@ def _pow2(v: int, lo: int) -> int:
     return c
 
 
-def _upload(a: np.ndarray, device: torch.device):
-    """A host array on `device`; to a card through pinned memory without
-    blocking, so the next group's host prep overlaps this group's work."""
-    t = torch.from_numpy(a)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+_TORCH_DTYPE = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32,
+                np.dtype(np.uint8): torch.uint8}
 
 
-def _prepare_group(grp, t_pad: int, q_pad: int, bw: int, n_dev: int = 1):
-    """Host prep of one group of windows: ((cons0 [NWIN, t_pad], lens0
-    [NWIN], fw_sh [B_pad, t_pad + bw + 1], q_lens, r0, win_of [B_pad]) as
-    numpy arrays, NWIN); B_pad is a multiple of `n_dev`."""
-    frag_rows: list = []
-    weight_rows: list = []
-    win_of: list = []
-    r0_list: list = []
-    for gi, (bb, frags, wts, spans) in enumerate(grp):
-        for fi, f in enumerate(frags):
-            frag_rows.append(np.asarray(f, np.uint8))
-            weight_rows.append(
-                np.asarray(wts[fi], np.uint8)
-                if wts is not None
-                else np.ones(len(f), np.uint8)
-            )
-            win_of.append(gi)
-            r0_list.append(int(spans[fi][0]) if spans is not None else 0)
-    B_total = len(frag_rows)
+def _upload(stage, arrays: dict, device: torch.device) -> dict:
+    """A group's arrays (numpy views of the uint8 CPU tensor `stage`, or
+    None) as tensors on `device`: to a card one copy of `stage`, pinned,
+    without blocking (so the next group's host prep overlaps this group's
+    work), and the same views of the copy."""
+    if device.type != "cuda":
+        return {k: None if a is None else torch.from_numpy(a).to(device)
+                for k, a in arrays.items()}
+    flat = stage.to(device, non_blocking=True)
+    base = stage.data_ptr()
+    out = {}
+    for k, a in arrays.items():
+        if a is not None:
+            at = a.ctypes.data - base
+            a = flat[at: at + a.nbytes].view(_TORCH_DTYPE[a.dtype]).view(a.shape)
+        out[k] = a
+    return out
+
+
+def _prepare_group(grp, t_pad: int, q_pad: int, bw: int, n_dev: int = 1,
+                   pinned: bool = False):
+    """Host prep of one group of windows, laid out for one upload: (stage,
+    arrays, NWIN).  `stage` is one uint8 CPU tensor (in pinned memory when
+    `pinned`) and `arrays` numpy views of it by name: the backbones cons0
+    [NWIN, t_pad] (-1 past each) and lens0 [NWIN] int32; per fragment row
+    (B_pad of them, a multiple of `n_dev`; the rows past the group's
+    fragments are padding, q_len 0) src int64, the row's first byte in
+    `bases`, and int32 q_lens (its length cut at q_pad), r0 (its span start
+    clipped to [0, t_pad - 1]) and win_of; `bases`, the fragments' bytes
+    back to back, and `wts`, their weights (ones for a window that carries
+    none), None when no window of the group carries weights.
+    band_cuda.band_pack turns them into the rows fw_sh [B_pad, t_pad + bw +
+    1] that pack_shifted_fragments makes.  The work is whole-group: the
+    lengths and span starts by np.fromiter, one concatenate of the bytes
+    (and one of the weights) straight into the buffer."""
+    counts = np.fromiter((len(w[1]) for w in grp), np.int64, len(grp))
+    B_total = int(counts.sum())
     NWIN = _pow2(len(grp), 8)
     B_pad = -(-_pow2(max(B_total, 1), 256) // n_dev) * n_dev
-    r0 = np.zeros(B_pad, np.int32)
-    r0[:B_total] = np.clip(r0_list, 0, t_pad - 1)
-    fw_sh = np.zeros((B_pad, t_pad + bw + 1), np.uint8)
-    q_lens = np.zeros(B_pad, np.int32)
+    frags = [f for w in grp for f in w[1]]
+    lens = np.fromiter(map(len, frags), np.int64, B_total)
+    N = int(lens.sum())
+    weighted = any(w[2] is not None for w in grp)
+    shapes = {"src": (np.int64, (B_pad,)), "q_lens": (np.int32, (B_pad,)),
+              "r0": (np.int32, (B_pad,)), "win_of": (np.int32, (B_pad,)),
+              "cons0": (np.int32, (NWIN, t_pad)), "lens0": (np.int32, (NWIN,)),
+              "bases": (np.uint8, (N,)), "wts": (np.uint8, (N if weighted else 0,))}
+    at, size = {}, 0
+    for k, (dt, shape) in shapes.items():  # each array at a multiple of 16 bytes
+        at[k] = size
+        size += -(-int(np.prod(shape)) * np.dtype(dt).itemsize // 16) * 16
+    stage = torch.empty(size, dtype=torch.uint8, pin_memory=pinned)
+    buf = stage.numpy()
+    a = {k: buf[at[k]: at[k] + int(np.prod(shape)) * np.dtype(dt).itemsize]
+         .view(dt).reshape(shape) for k, (dt, shape) in shapes.items()}
+    for k in ("src", "q_lens", "r0", "win_of"):
+        a[k][B_total:] = 0
+    a["src"][:B_total] = np.cumsum(lens) - lens
+    a["q_lens"][:B_total] = np.minimum(lens, q_pad)
+    starts = np.fromiter(chain.from_iterable(
+        (s[0] for s in sp[: len(fr)]) if sp is not None else repeat(0, len(fr))
+        for _b, fr, _w, sp in grp), np.int64, B_total)
+    a["r0"][:B_total] = np.clip(starts, 0, t_pad - 1)
+    a["win_of"][:B_total] = np.repeat(np.arange(len(grp), dtype=np.int32), counts)
     if B_total:
-        fw_sh[:B_total], q_lens[:B_total] = pack_shifted_fragments(
-            frag_rows, weight_rows, r0, q_pad, t_pad, bw
-        )
-    win_of_arr = np.zeros(B_pad, np.int32)
-    win_of_arr[:B_total] = win_of
-    cons0 = np.full((NWIN, t_pad), -1, np.int32)
-    lens0 = np.zeros(NWIN, np.int32)
+        np.concatenate(frags, out=a["bases"], casting="unsafe")
+    if weighted:
+        parts, lo = [], 0
+        for (_b, fr, wts, _s), n in zip(grp, counts):
+            if wts is None:
+                parts.append(np.ones(int(lens[lo: lo + n].sum()), np.uint8))
+            elif any(len(w) != len(f) for w, f in zip(wts, fr)):
+                parts.extend(np.asarray(w)[: len(f)] for w, f in zip(wts, fr))
+            else:
+                parts.extend(wts[: len(fr)])
+            lo += n
+        np.concatenate(parts, out=a["wts"], casting="unsafe")
+    else:
+        a["wts"] = None
+    a["cons0"].fill(-1)
+    a["lens0"].fill(0)
     for gi, (bb, _f, _w, _s) in enumerate(grp):
-        bb = np.asarray(bb, np.uint8)
-        cl = min(bb.size, t_pad)
-        cons0[gi, :cl] = bb[:cl]
-        lens0[gi] = cl
-    return (cons0, lens0, fw_sh, q_lens, r0, win_of_arr), NWIN
+        cl = min(len(bb), t_pad)
+        a["cons0"][gi, :cl] = bb[:cl]
+        a["lens0"][gi] = cl
+    return stage, a, NWIN
+
+
+def host_layout(grp, t_pad: int, q_pad: int, bw: int, n_dev: int = 1):
+    """A group's arrays as band_window_consensus hands them to
+    resident_consensus, made on the CPU (band_pack's plain version):
+    ((cons0, lens0, fw_sh, q_lens, r0, win_of) as numpy, NWIN)."""
+    stage, a, NWIN = _prepare_group(grp, t_pad, q_pad, bw, n_dev)
+    d = _upload(stage, a, torch.device("cpu"))
+    fw_sh = band_cuda.band_pack(d["bases"], d["wts"], d["src"], d["q_lens"], d["r0"],
+                                t_pad, bw)
+    return (a["cons0"], a["lens0"], fw_sh.numpy(), a["q_lens"], a["r0"], a["win_of"]), NWIN
 
 
 def band_window_consensus(
@@ -267,9 +325,10 @@ def band_window_consensus(
 
     The call is the span "band.call" {windows, groups}; each group's host
     prep "band.prepare" {windows, fragments, rows: the padded B}, its upload
-    "band.upload" {bytes} and its refinement loop's launches "band.queue"
-    {iterations}; the tokens' return, which waits for the card,
-    "band.collect".
+    and the pack of its fragment rows on the device "band.upload" {bytes:
+    the one staged buffer that crosses} and its refinement loop's launches
+    "band.queue" {iterations}; the tokens' return, which waits for the
+    card, "band.collect".
     """
     with trace.span("band.call", windows=len(windows)) as call:
         device = mesh.first if mesh is not None else resolve_device(device)
@@ -294,13 +353,17 @@ def band_window_consensus(
                 wi += 1
             grp = windows[lo:wi]
             with trace.span("band.prepare", windows=len(grp), fragments=rows) as s:
-                arrays, NWIN = _prepare_group(grp, t_pad, q_pad, bw, n_dev)
-                s["rows"] = arrays[2].shape[0]
-            with trace.span("band.upload", bytes=sum(a.nbytes for a in arrays)):
-                uploaded = [_upload(a, device) for a in arrays]
+                stage, arrays, NWIN = _prepare_group(grp, t_pad, q_pad, bw, n_dev,
+                                                     pinned=device.type == "cuda")
+                s["rows"] = arrays["q_lens"].shape[0]
+            with trace.span("band.upload", bytes=stage.nbytes):
+                d = _upload(stage, arrays, device)
+                fw_sh = band_cuda.band_pack(d["bases"], d["wts"], d["src"], d["q_lens"],
+                                            d["r0"], t_pad, bw)
             with trace.span("band.queue", iterations=int(iterations)):
                 toks, lens = resident_consensus(
-                    *uploaded, t_pad, bw, NWIN, int(iterations), mesh,
+                    d["cons0"], d["lens0"], fw_sh, d["q_lens"], d["r0"], d["win_of"], t_pad,
+                    bw, NWIN, int(iterations), mesh,
                 )
             pending.append((lo, len(grp), toks, lens))
 

@@ -278,3 +278,135 @@ def test_cpu_tensors_launch_no_kernel():
     meta = torch.zeros((2, T), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no banded forward kernel"):
         band_cuda.band_forward(meta, None, None, None, None, T, BW)
+    with pytest.raises(ValueError, match="no band pack kernel"):
+        band_cuda.band_pack(None, None, None, meta[0], None, T, BW)
+    # a whole call on the CPU packs its rows with the plain version
+    windows = _windows(np.random.default_rng(3), 3, 60, 4, spans=True)
+    tb.band_window_consensus(windows, iterations=1, t_pad=64, q_pad=96, bw=256, device="cpu")
+    assert band_cuda.LAUNCHES == before and band_cuda.LAUNCHES["band_pack"] == 0
+
+
+def _previous_layout(grp, t_pad, q_pad, bw, n_dev=1):
+    """The group layout band_window_consensus made on the host before the
+    rows were packed on the device: fragment by fragment, through
+    pack_shifted_fragments.  ((cons0, lens0, fw_sh, q_lens, r0, win_of),
+    NWIN), numpy."""
+    frag_rows, weight_rows, win_of, r0_list = [], [], [], []
+    for gi, (bb, frags, wts, spans) in enumerate(grp):
+        for fi, f in enumerate(frags):
+            frag_rows.append(np.asarray(f, np.uint8))
+            weight_rows.append(np.asarray(wts[fi], np.uint8) if wts is not None
+                               else np.ones(len(f), np.uint8))
+            win_of.append(gi)
+            r0_list.append(int(spans[fi][0]) if spans is not None else 0)
+    B_total = len(frag_rows)
+    NWIN = tb._pow2(len(grp), 8)
+    B_pad = -(-tb._pow2(max(B_total, 1), 256) // n_dev) * n_dev
+    r0 = np.zeros(B_pad, np.int32)
+    r0[:B_total] = np.clip(r0_list, 0, t_pad - 1)
+    fw_sh = np.zeros((B_pad, t_pad + bw + 1), np.uint8)
+    q_lens = np.zeros(B_pad, np.int32)
+    if B_total:
+        fw_sh[:B_total], q_lens[:B_total] = tb.pack_shifted_fragments(
+            frag_rows, weight_rows, r0, q_pad, t_pad, bw)
+    win = np.zeros(B_pad, np.int32)
+    win[:B_total] = win_of
+    cons0 = np.full((NWIN, t_pad), -1, np.int32)
+    lens0 = np.zeros(NWIN, np.int32)
+    for gi, (bb, _f, _w, _s) in enumerate(grp):
+        cl = min(len(bb), t_pad)
+        cons0[gi, :cl] = np.asarray(bb, np.uint8)[:cl]
+        lens0[gi] = cl
+    return (cons0, lens0, fw_sh, q_lens, r0, win), NWIN
+
+
+PACK_CASES = ["weights-none", "weights-over-63", "weights-mixed", "weights-longer", "past-q_pad",
+              "r0-at-end", "zero-length", "n_dev-3", "one-window"]
+
+
+def _pack_group(name, bw, t_pad=128):
+    """(group, q_pad, n_dev) for one named band_pack case: windows of
+    fragments of 0-260 bases on backbones of 60-200, a third of the windows
+    with spans (starts past t_pad and below 0 among them, clipped)."""
+    rng = np.random.default_rng(PACK_CASES.index(name) + 101 + bw)
+    n_win = {"one-window": 1, "n_dev-3": 7}.get(name, 5)
+    q_pad, n_dev = (96 if name == "past-q_pad" else 2 * t_pad), (3 if name == "n_dev-3" else 1)
+    grp = []
+    for wi in range(n_win):
+        n_frag = int(rng.integers(3, 12)) if name != "n_dev-3" else 37
+        lo = 0 if name == "zero-length" else 20
+        frags = [rng.integers(0, 4, int(rng.integers(lo, 260))).astype(np.uint8)
+                 for _ in range(n_frag)]
+        if name == "zero-length":
+            frags[::3] = [np.zeros(0, np.uint8)] * len(frags[::3])
+        wts = None
+        if name == "weights-over-63" or (name == "weights-mixed" and wi % 2):
+            wts = [rng.integers(0, 256, f.size).astype(np.uint8) for f in frags]
+        if name == "weights-longer":  # weights past their fragment's end go unread
+            wts = [rng.integers(0, 64, f.size + 7 * (i % 2)).astype(np.uint8)
+                   for i, f in enumerate(frags)]
+        spans = None
+        if name == "r0-at-end":
+            spans = [(t_pad - 1 + int(rng.integers(0, 3)), t_pad) for _ in frags]
+        elif wi % 3 == 1:
+            spans = [(int(rng.integers(-5, t_pad + 20)), t_pad) for _ in frags]
+        grp.append((rng.integers(0, 4, int(rng.integers(60, 200))).astype(np.uint8), frags,
+                    wts, spans))
+    return grp, q_pad, n_dev
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("bw", [256, 768])
+@pytest.mark.parametrize("name", PACK_CASES)
+def test_band_pack_matches_pack_shifted_fragments(name, bw, device):
+    """band_pack on the flat arrays of _prepare_group gives the rows and
+    q_lens that pack_shifted_fragments gives, byte for byte: on CPU tensors
+    its plain version, on a card the kernel (one launch)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("no CUDA card: band_pack's kernel runs only on one")
+    t_pad = 128
+    grp, q_pad, n_dev = _pack_group(name, bw, t_pad)
+    (_, _, fw_want, q_want, _, _), _ = _previous_layout(grp, t_pad, q_pad, bw, n_dev)
+    _, v, _ = tb._prepare_group(grp, t_pad, q_pad, bw, n_dev)
+    assert (v["wts"] is None) == (name in ("weights-none", "past-q_pad", "r0-at-end",
+                                          "zero-length", "n_dev-3", "one-window"))
+    d = {k: None if x is None else torch.from_numpy(x).to(device) for k, x in v.items()}
+    before = band_cuda.LAUNCHES["band_pack"]
+    fw_sh = band_cuda.band_pack(d["bases"], d["wts"], d["src"], d["q_lens"], d["r0"], t_pad, bw)
+    assert band_cuda.LAUNCHES["band_pack"] == before + (device == "cuda")
+    assert fw_sh.dtype == torch.uint8 and fw_sh.shape == fw_want.shape
+    assert np.array_equal(fw_sh.cpu().numpy(), fw_want)
+    assert np.array_equal(v["q_lens"], q_want)
+    B_total = sum(len(w[1]) for w in grp)
+    assert fw_want.shape[0] % n_dev == 0 and not fw_want[B_total:].any()
+    if name == "weights-over-63":
+        assert (fw_want >> 2).max() == tb.WCAP
+    if name == "past-q_pad":
+        assert (q_want == q_pad).any()
+    if name == "r0-at-end":  # n cut by the row's end: SW - off = bw // 2 + 1 bytes
+        assert (np.count_nonzero(fw_want[:B_total], axis=1) <= bw // 2 + 1).all()
+
+
+@pytest.mark.parametrize("name", ["weights-mixed", "n_dev-3", "zero-length"])
+def test_prepare_group_matches_previous_layout(name):
+    """_prepare_group's arrays, packed by band_pack's plain version, are the
+    previous host layout, window for window: the backbone and its length,
+    and each of the window's rows (bytes, q_len, r0), in order; the padding
+    rows are empty."""
+    t_pad, bw = 128, 256
+    grp, q_pad, n_dev = _pack_group(name, bw, t_pad)
+    want, NWIN = _previous_layout(grp, t_pad, q_pad, bw, n_dev)
+    got, NWIN_got = tb.host_layout(grp, t_pad, q_pad, bw, n_dev)
+    assert NWIN_got == NWIN
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    cons0, lens0, fw_sh, q_lens, r0, win = got
+    B_total = sum(len(w[1]) for w in grp)
+    for gi in range(NWIN):
+        assert np.array_equal(cons0[gi], want[0][gi]) and lens0[gi] == want[1][gi]
+        rows = np.flatnonzero(want[5][:B_total] == gi)
+        assert np.array_equal(np.flatnonzero(win[:B_total] == gi), rows)
+        for a, b in zip((fw_sh, q_lens, r0), (want[2], want[3], want[4])):
+            assert np.array_equal(a[rows], b[rows])
+    for a in (fw_sh, q_lens, r0, win):
+        assert not a[B_total:].any()

@@ -62,7 +62,7 @@ def _j(*arrays):
 
 def _band_batch(bw, kind, T=96):
     """A group of 5 windows laid out as band_window_consensus lays it out
-    at a band of bw (its _prepare_group): (cons_arr, cons_lens, cw, tl,
+    at a band of bw (its host_layout): (cons_arr, cons_lens, cw, tl,
     fw_sh, q_lens, r0, win, NWIN).  `kind` "spans" places 40% of the
     fragments on a part of their window; "insertion-runs" puts 1-2 runs of
     20-60 bases the consensus lacks into each fragment, whose left moves
@@ -84,7 +84,7 @@ def _band_batch(bw, kind, T=96):
             runs.append((bb, fr, wt))
         windows = runs
     grp = [(w[0], w[1], w[2], w[3] if len(w) > 3 else None) for w in windows]
-    (cons0, lens0, fw_sh, q_lens, r0, win), NWIN = tb._prepare_group(grp, T, 4 * T, bw)
+    (cons0, lens0, fw_sh, q_lens, r0, win), NWIN = tb.host_layout(grp, T, 4 * T, bw)
     return cons0, lens0, cons0[win], lens0[win], fw_sh, q_lens, r0, win, NWIN
 
 

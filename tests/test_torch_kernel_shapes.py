@@ -288,7 +288,7 @@ def _band_group(bw, T=64):
             fr.append(f)
             wt.append(w)
         grp.append((bb, fr, wt, None))
-    (cons0, lens0, fw_sh, q_lens, r0, win), _ = tb._prepare_group(grp, T, 4 * T, bw)
+    (cons0, lens0, fw_sh, q_lens, r0, win), _ = tb.host_layout(grp, T, 4 * T, bw)
     return cons0[win], lens0[win], fw_sh, q_lens, r0
 
 

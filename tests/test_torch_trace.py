@@ -164,6 +164,13 @@ def test_band_engine_spans(log):
     for name in ("band.upload", "band.queue"):
         assert len(_named(log(), name)) == 3, name
     assert all(r.counts == {"iterations": 2} for r in _named(log(), "band.queue"))
-    assert all(r.counts["bytes"] > 256 * 640 for r in _named(log(), "band.upload"))
+    # what crosses is each group's one staged buffer: its fragments' bytes and
+    # weights back to back, 20 B a row of 256, the 8 backbones of 640 int32
+    # and their lengths, each array at a multiple of 16 bytes
+    upload = sorted(_named(log(), "band.upload"), key=lambda r: r.start)
+    for r, lo, hi in zip(upload, (0, 8, 16), (8, 16, 20)):
+        least = 256 * 20 + 8 * 640 * 4 + 8 * 4 + 2 * sum(
+            len(f) for w in windows[lo:hi] for f in w[1])
+        assert least <= r.counts["bytes"] < least + 8 * 16
     assert len(_named(log(), "band.collect")) == 1
     assert all(r.parent == call.id for r in log() if r is not call)
