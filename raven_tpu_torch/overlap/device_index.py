@@ -16,7 +16,12 @@ reference's ram Minimize/Filter/Map fan-out (construct.cc:42-44, 57-113):
     equality compare over the count-sorted usable entries (the self-join
     formulation of overlap/selfjoin.py);
   * chain: the match columns stay on the device and are chained there
-    (ops/chain_device.py); only the overlap columns come back.
+    (ops/chain_device.py), CHAIN_MATCHES at a time in runs of whole
+    query reads; only the overlap columns come back;
+  * foreign queries: reads outside the build set (an earlier index
+    batch's, in the construct's later batches) are sketched on the device
+    by K1 and looked up in the key-sorted columns (`foreign_join`), their
+    hits expanded in chunks and chained the same way.
 
 Results equal the host path's (overlap/minimizer.py, selfjoin.py,
 chain.py) exactly.  The capacity limits of the JAX reference are kept, and
@@ -32,6 +37,8 @@ to the limits above (raven_tpu's PartitionedIndex).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -52,11 +59,18 @@ MAX_D = 40
 SAFE_JOIN_ENTRIES = (0xFFFFFFFE - MAX_D) // (MAX_D + 1) + 1
 MAX_ENTRIES = 1 << 28  # the largest single index the reference sorts
 MAX_MATCHES = 1 << 30
+# matches chained in one device call (ops/chain_device.py takes ~150 bytes
+# a match at its peak): a larger set is chained in read-aligned chunks
+CHAIN_MATCHES = 1 << 27
+# foreign-query matches expanded at once (~40 bytes a match in flight)
+EXPAND_MATCHES = 1 << 26
 # raven_tpu's PartitionedIndex (raven_tpu/overlap/device_index.py:1239-1242):
 # a part's target fill, 3/4 of MAX_ENTRIES, and the partitioned ceiling
 PART_TARGET = 3 << 26
 MAX_TOTAL_ENTRIES = 3 << 28
 HASH_SPACE = 1 << 30  # sketch hashes are below it (ops/sketch.py)
+# the build's hash histogram: bins of 2^14 hashes, where balanced_splits cuts
+HIST_SHIFT = 14
 
 # packed position column: pos | strand << 29 | flag << 30  (pos < 2^29)
 _STRAND_BIT = 29
@@ -94,6 +108,20 @@ def range_splits(n: int) -> list[int]:
     return [HASH_SPACE * h // n for h in range(1, n)]
 
 
+def balanced_splits(hist: torch.Tensor, n: int) -> list[int]:
+    """Hashes at bin edges of the build's histogram (bins of 2^HIST_SHIFT
+    hashes) that cut its entries into up to `n` ranges as even as the bins
+    allow.  Minimizers are window minima, so their hashes crowd the low end
+    of the hash space (two thirds of them below a quarter of it): equal
+    ranges leave the first part several times the others'."""
+    cum = torch.cumsum(hist, 0)
+    total = int(cum[-1])
+    at = torch.searchsorted(cum, torch.tensor([total * i // n for i in range(1, n)],
+                                              dtype=cum.dtype, device=cum.device))
+    edges = sorted({min(int(b) + 1, hist.numel()) << HIST_SHIFT for b in at.tolist()})
+    return [e for e in edges if e < HASH_SPACE]
+
+
 def range_cuts(key: torch.Tensor, splits) -> list[int]:
     """Where the key-sorted column `key` crosses each of the hashes
     `splits`: n + 1 offsets, one range between each two."""
@@ -101,28 +129,20 @@ def range_cuts(key: torch.Tensor, splits) -> list[int]:
     return [0, *at.tolist(), key.numel()]
 
 
-def _build_columns(readset, ids, k, w, minhash, with_flags, device, splits=()):
-    """The sketch of `ids` as key-sorted index columns: (key, rid, packed
-    int32 [N], need_flags, counts), or None past a capacity limit.  The
-    ascending hashes `splits` cut the hash space into ranges (a part
-    each); `counts` holds each range's entries before the minhash cut, at
-    most MAX_ENTRIES."""
-    if 2 * k > 30:
-        return None
-    device = torch.device(device)
-    ids = np.asarray(ids, dtype=np.int64)
+def _sketch_chunks(readset, ids, k, w, device, capped=True):
+    """The sketch of `ids` on `device`, one chunk of read-aligned segment
+    rows (ops/sketch.py CHUNK_ALIGN) at a time: yields (key int64, rid
+    int32, pos1 int64: position << 1 | strand) of each chunk's kept
+    minimizers, reads and positions ascending; a read never spans two
+    chunks.  With `capped`, a chunk whose minimizers exceed the
+    reference's largest per-chunk capacity (density 0.45) yields None and
+    ends the sketch, as the build declines there."""
     packed, eff, rids, base, clo, chi = segment_reads_packed(
         readset, ids, k, w, width=SEG_WIDTH
     )
     S = packed.shape[0]
-    if S == 0:
-        return None
-    # chunks of read-aligned rows (ops/sketch.py CHUNK_ALIGN); a chunk
-    # whose minimizers exceed the reference's largest per-chunk
-    # capacity (density 0.45) declines as it does there
     chunk = _pow2_at_least(S, 256, 8192)
     cap = max(4096, int(chunk * SEG_WIDTH * 0.45) // 4096 * 4096)
-    keys, rid_parts, pos1_parts = [], [], []
     for c0 in range(0, S, chunk):
         sl = slice(c0, min(c0 + chunk, S))
         codes = unpack_codes(torch.from_numpy(packed[sl]).to(device))
@@ -132,48 +152,91 @@ def _build_columns(readset, ids, k, w, minhash, with_flags, device, splits=()):
         ]
         key, rid, gpos, sb = sketch_segments(codes, *meta, k, w)
         sel = torch.nonzero(key != UINT32_INF).squeeze(1)
-        if sel.numel() > cap:
+        if capped and sel.numel() > cap:
+            yield None
+            return
+        yield key[sel], rid[sel], (gpos[sel].to(torch.int64) << 1) | sb[sel]
+
+
+def _minhash_flags(key, rid, pos1, budget):
+    """The minhash subset (minimizer.py's semantics): whether each entry is
+    among its read's budget[read] = len // k smallest by (hash, position).
+    The entries hold their reads whole (a chunk of _sketch_chunks)."""
+    order = torch.argsort((key << 30) | pos1, stable=True)
+    order = order[torch.argsort(rid[order], stable=True)]
+    r_s = rid[order]
+    # rank within the read: minus the start of its run of equal rids (a
+    # 1-D cummax here ran as one serial scan on the card)
+    rank = torch.arange(key.numel(), device=key.device) - torch.searchsorted(r_s, r_s)
+    flag = torch.empty(key.numel(), dtype=torch.bool, device=key.device)
+    flag[order] = rank < budget[r_s.to(torch.int64)]
+    return flag
+
+
+def _read_budget(readset, k, device):
+    """Each read's minhash budget, len // k, by read id, on `device`."""
+    return torch.from_numpy(np.asarray(readset.lengths, dtype=np.int64) // k).to(device)
+
+
+def _build_columns(readset, ids, k, w, minhash, with_flags, device, splits=(),
+                   balance=False):
+    """The sketch of `ids` as key-sorted index columns: (key, rid, packed
+    int32 [N], need_flags, counts, splits), or None past a capacity limit.
+    The ascending hashes `splits` cut the hash space into ranges (a part
+    each); `counts` holds each range's entries before the minhash cut, at
+    most MAX_ENTRIES.  With `balance`, ranges that would pass MAX_ENTRIES
+    or the self-join's SAFE_JOIN_ENTRIES are cut anew by balanced_splits,
+    into as many as hold every range within both, and the splits returned
+    are those.  The minhash flags are taken a chunk at a time, and each
+    chunk is packed to 12 bytes an entry before the next is sketched, so
+    the build holds little more than the columns."""
+    if 2 * k > 30:
+        return None
+    device = torch.device(device)
+    ids = np.asarray(ids, dtype=np.int64)
+    need_flags = bool(minhash or with_flags)
+    budget = _read_budget(readset, k, device) if need_flags else None
+    bounds = torch.tensor(splits, dtype=torch.int64, device=device)
+    counts = torch.zeros(len(splits) + 1, dtype=torch.int64, device=device)
+    hist = torch.zeros(HASH_SPACE >> HIST_SHIFT, dtype=torch.int64, device=device)
+    keys, rid_parts, packed_parts = [], [], []
+    for chunk in _sketch_chunks(readset, ids, k, w, device):
+        if chunk is None:
             return None
-        keys.append(key[sel])
-        rid_parts.append(rid[sel])
-        pos1_parts.append((gpos[sel].to(torch.int64) << 1) | sb[sel])
-    key = torch.cat(keys)
-    rid = torch.cat(rid_parts)
-    pos1 = torch.cat(pos1_parts)
-    total = key.numel()
-    counts = torch.bincount(
-        torch.bucketize(key, torch.tensor(splits, dtype=key.dtype, device=device), right=True),
-        minlength=len(splits) + 1,
-    ).tolist()
+        key, rid, pos1 = chunk
+        counts += torch.bincount(torch.bucketize(key, bounds, right=True),
+                                 minlength=len(splits) + 1)
+        if balance:
+            hist += torch.bincount(key >> HIST_SHIFT, minlength=hist.numel())
+        packed_col = (pos1 >> 1) | ((pos1 & 1) << _STRAND_BIT)
+        if need_flags:
+            flag = _minhash_flags(key, rid, pos1, budget)
+            packed_col |= flag.to(torch.int64) << _FLAG_BIT
+            if minhash:
+                key, rid, packed_col = key[flag], rid[flag], packed_col[flag]
+        keys.append(key.to(torch.int32))
+        rid_parts.append(rid.to(torch.int32))
+        packed_parts.append(packed_col.to(torch.int32))
+    if not keys:
+        return None
+    counts = counts.tolist()
+    if balance and max(counts) > min(MAX_ENTRIES, SAFE_JOIN_ENTRIES):
+        # a tenth of room for the histogram's grain
+        n = max(len(counts), math.ceil(sum(counts) / (0.9 * min(MAX_ENTRIES, SAFE_JOIN_ENTRIES))))
+        splits = balanced_splits(hist, n)
+        edges = [0, *(s >> HIST_SHIFT for s in splits), hist.numel()]
+        cum = torch.cumsum(hist, 0).tolist()
+        counts = [(cum[b - 1] if b else 0) - (cum[a - 1] if a else 0)
+                  for a, b in zip(edges, edges[1:])]
     if max(counts) > MAX_ENTRIES:
         return None
-
-    need_flags = bool(minhash or with_flags)
-    packed_col = (pos1 >> 1) | ((pos1 & 1) << _STRAND_BIT)
-    if need_flags:
-        # minhash subset (minimizer.py minhash semantics): a read's
-        # len // k smallest entries by (hash, position)
-        budget = torch.from_numpy(
-            np.asarray(readset.lengths, dtype=np.int64) // k
-        ).to(device)
-        order = torch.argsort((key << 30) | pos1, stable=True)
-        order = order[torch.argsort(rid[order], stable=True)]
-        r_s = rid[order]
-        # rank within the read: minus the start of its run of equal
-        # rids (a 1-D cummax here ran as one serial scan on the card)
-        rank = torch.arange(total, device=device) - torch.searchsorted(r_s, r_s)
-        flag = torch.empty(total, dtype=torch.bool, device=device)
-        flag[order] = rank < budget[r_s.to(torch.int64)]
-        packed_col |= flag.to(torch.int64) << _FLAG_BIT
-        if minhash:
-            key, rid, packed_col = key[flag], rid[flag], packed_col[flag]
-    order = torch.argsort(key, stable=True)
-    return (
-        key[order].to(torch.int32),
-        rid[order].to(torch.int32),
-        packed_col[order].to(torch.int32),
-        need_flags, counts,
-    )
+    key = torch.cat(keys)
+    del keys
+    key, order = torch.sort(key, stable=True)
+    rid = torch.cat(rid_parts)[order]
+    del rid_parts
+    packed = torch.cat(packed_parts)[order]
+    return key, rid, packed, need_flags, counts, list(splits)
 
 
 class DeviceIndex:
@@ -181,6 +244,10 @@ class DeviceIndex:
 
     Columns, key-sorted: key int32 (hash < 2^30), rid int32, packed int32
     (pos | strand << 29 | flag << 30)."""
+
+    # reads outside the build set are mapped on the index's device
+    # (join_foreign)
+    joins_foreign = True
 
     def __init__(self, key, rid, packed, has_flags, k, w, capacity=None):
         self._key = key
@@ -209,8 +276,9 @@ class DeviceIndex:
         cols = _build_columns(readset, ids, k, w, minhash, with_flags, device)
         if cols is None:
             return None
-        key, rid, packed, need_flags, (count,) = cols
+        key, rid, packed, need_flags, (count,), _ = cols
         return cls(key, rid, packed, need_flags, k, w, _capacity(count))
+
     @classmethod
     def from_host(cls, key, rid, packed, n_entries, has_flags, k, w, device):
         """Wrap numpy index columns (key-sorted, as a JAX-built
@@ -358,6 +426,14 @@ class DeviceIndex:
                 filtered_out.setdefault(int(r), []).append(int(p))
         return cols
 
+    def join_foreign(self, readset, ids, occurrence: int, minhash: bool, avoid_equal: bool,
+                     avoid_symmetric: bool, filtered_out: dict | None = None,
+                     chain_k: int | None = None):
+        """foreign_join over this index: the reads `ids`, none of them in
+        its build set, mapped as the host route maps them."""
+        return foreign_join([self], readset, ids, self.k, self.w, occurrence, minhash,
+                            avoid_equal, avoid_symmetric, filtered_out, chain_k)
+
     # ------------------------------------------------------------ run stats
     def run_hist(self) -> np.ndarray:
         """Clipped run-length histogram [_RHBINS] (bin 0 always 0)."""
@@ -388,13 +464,41 @@ class DeviceIndex:
         return key, rid, pos, strand, flags
 
 
+def chain_in_chunks(cols, k, out: dict | None = None) -> dict:
+    """Chain device match columns (q_id, q_pos, t_id, t_pos, same) into
+    {read_id: overlaps} (ops/chain_device.py), at most CHAIN_MATCHES
+    matches a call: the queries cut into runs of whole reads, so each
+    read's overlaps are those of one call over all its matches."""
+    from raven_tpu_torch.ops.chain_device import chain_matches_device
+
+    out = {} if out is None else out
+    q_id = cols[0]
+    if q_id.numel() <= CHAIN_MATCHES:
+        out.update(chain_matches_device(*cols, k))
+        return out
+    q = q_id
+    csum = torch.cumsum(torch.bincount(q.clamp(min=0)), 0)
+    n_reads = csum.numel()
+    lo = 0
+    while lo < n_reads:
+        base = int(csum[lo - 1]) if lo else 0
+        hi = max(lo + 1, int(torch.searchsorted(csum, base + CHAIN_MATCHES, right=True)))
+        sel = torch.nonzero((q >= lo) & (q < hi)).squeeze(1)
+        if sel.numel():
+            out.update(chain_matches_device(*(c[sel] for c in cols), k))
+        lo = hi
+    return out
+
+
 def _finish_join(cols, chain_k):
     """Match columns to distance_join's result: chained on the device into
     {read_id: overlaps} with chain_k set, else numpy columns."""
     if chain_k is not None:
-        from raven_tpu_torch.ops.chain_device import chain_matches_device
+        return chain_in_chunks(cols, chain_k)
+    return _host_columns(cols)
 
-        return chain_matches_device(*cols, chain_k)
+
+def _host_columns(cols):
     q_id, q_pos, t_id, t_pos, same = (c.cpu().numpy() for c in cols)
     return (
         q_id.astype(np.int64), q_pos.astype(np.int64),
@@ -403,20 +507,144 @@ def _finish_join(cols, chain_k):
     )
 
 
+def _expand_hits(part, lo, cnt, q_rid, q_pos1, avoid_equal, avoid_symmetric):
+    """The matches of query entries against one index's key-sorted
+    columns: entry j hits part's entries lo[j] .. lo[j] + cnt[j] - 1.
+    Yields match columns (q_id, q_pos, t_id, t_pos int32, same uint8) of
+    at most EXPAND_MATCHES hits each, query entries in order, the hits on
+    the query read itself (avoid_equal) or on lower ids (avoid_symmetric)
+    left out, as the host route's map leaves them."""
+    dev = cnt.device
+    csum = torch.cumsum(cnt, 0)
+    n = cnt.numel()
+    start = 0
+    while start < n:
+        base = int(csum[start - 1]) if start else 0
+        end = max(start + 1, int(torch.searchsorted(csum, base + EXPAND_MATCHES, right=True)))
+        c = cnt[start:end]
+        src = torch.repeat_interleave(torch.arange(c.numel(), device=dev), c)
+        flat = (torch.arange(src.numel(), device=dev) - (torch.cumsum(c, 0) - c)[src]
+                + lo[start:end][src])
+        t_id = part._rid[flat]
+        q_id = q_rid[start:end][src]
+        keep = torch.ones(src.numel(), dtype=torch.bool, device=dev)
+        if avoid_equal:
+            keep &= t_id != q_id
+        if avoid_symmetric:
+            keep &= t_id > q_id
+        sel = torch.nonzero(keep).squeeze(1)
+        t_packed = part._packed[flat[sel]]
+        q_p1 = q_pos1[start:end][src[sel]]
+        same = (q_p1 & 1) == ((t_packed >> _STRAND_BIT) & 1)
+        yield (q_id[sel], (q_p1 >> 1).to(torch.int32), t_id[sel], t_packed & _POS_MASK,
+               same.to(torch.uint8))
+        start = end
+
+
+def foreign_join(parts, readset, ids, k, w, occurrence, minhash, avoid_equal,
+                 avoid_symmetric, filtered_out=None, chain_k=None):
+    """Map query reads that lie outside the index's build set (foreign
+    queries) against key-sorted index parts on one device, with the host
+    route's results (MinimizerIndex.map_many past its self-join).
+
+    The queries are sketched on the index's device by K1 a read-aligned
+    chunk at a time (the build's path), cut to their minhash subset under
+    `minhash`; each entry's run of equal keys is found in every part by
+    binary search; runs longer than `occurrence` are skipped, and with
+    `filtered_out` given the query positions that hit them land there
+    (each read's ascending); the other runs' hits are expanded in chunks
+    of EXPAND_MATCHES and chained, at CHAIN_MATCHES or more matches
+    at a time, on the device (chain_k set: returns {read_id: overlaps})
+    or handed back as numpy match columns (chain_k None).  The span
+    "index.join_foreign" counts the reads, bases, query entries and
+    matches."""
+    dev = parts[0].device
+    ids = np.asarray(ids, dtype=np.int64)
+    out: dict = {}
+    host_cols: list = []
+    pending: list = []
+    f_rid, f_pos = [], []
+    with trace.span("index.join_foreign", reads=int(ids.size),
+                    bases=int(np.asarray(readset.lengths)[ids].sum())) as s:
+        n_entries = n_matches = n_pending = 0
+
+        def flush():
+            cols = tuple(torch.cat(c) for c in zip(*pending))
+            pending.clear()
+            if chain_k is not None:
+                chain_in_chunks(cols, chain_k, out)
+            else:
+                host_cols.append(_host_columns(cols))
+
+        budget = _read_budget(readset, k, dev) if minhash else None
+        for key, rid, pos1 in _sketch_chunks(readset, ids, k, w, dev, capped=False):
+            if minhash:
+                flag = _minhash_flags(key, rid, pos1, budget)
+                key, rid, pos1 = key[flag], rid[flag], pos1[flag]
+            n_entries += key.numel()
+            qkey = key.to(torch.int32)
+            for p in parts:
+                lo = torch.searchsorted(p._key, qkey)
+                cnt = torch.searchsorted(p._key, qkey, right=True) - lo
+                if filtered_out is not None:
+                    tf = torch.nonzero(cnt > occurrence).squeeze(1)
+                    f_rid.append(rid[tf])
+                    f_pos.append(pos1[tf] >> 1)
+                use = torch.nonzero((cnt > 0) & (cnt <= occurrence)).squeeze(1)
+                for cols in _expand_hits(p, lo[use], cnt[use], rid[use], pos1[use],
+                                         avoid_equal, avoid_symmetric):
+                    pending.append(cols)
+                    n_pending += cols[0].numel()
+            if n_pending >= CHAIN_MATCHES:
+                n_matches += n_pending
+                n_pending = 0
+                flush()
+        n_matches += n_pending
+        if pending:
+            flush()
+        s["entries"] = n_entries
+        s["matches"] = n_matches
+    if f_rid:
+        r = torch.cat(f_rid).cpu().numpy()
+        q = torch.cat(f_pos).cpu().numpy()
+        order = np.lexsort((q, r))
+        r, q = r[order], q[order]
+        cut = np.flatnonzero(np.diff(r)) + 1
+        for rr, qq in zip(np.split(r, cut), np.split(q, cut)):
+            if rr.size:
+                filtered_out.setdefault(int(rr[0]), []).extend(qq.tolist())
+    if chain_k is not None:
+        return out
+    if not host_cols:
+        e = np.zeros(0, dtype=np.int64)
+        return e, e, e, e, np.zeros(0, dtype=np.uint8)
+    return tuple(np.concatenate(c) for c in zip(*host_cols))
+
+
 class PartitionedIndex:
     """An index of more than MAX_ENTRIES entries as DeviceIndex parts over
     disjoint, ascending hash ranges: raven_tpu's PartitionedIndex
     (raven_tpu/overlap/device_index.py:1219).  A run of equal keys never
     crosses a range, so the filter's run lengths and the self-join split
     exactly: the parts join on their own and the union of their matches is
-    chained once.
+    chained (chain_in_chunks).
 
     raven_tpu re-sketches the reads once a part to fit a TPU's memory; here
     the reads are sketched once and the key-sorted columns cut at the
     range bounds (~13 GB at MAX_TOTAL_ENTRIES), so the minhash flags are
-    the single index's.  Each part keeps its own capacity limits, and any
-    part's decline declines the whole.  Same contract as DeviceIndex
-    (n_entries, has_flags, occurrence_for, distance_join, to_host)."""
+    the single index's.  The ranges are raven_tpu's equal ones unless one
+    would hold more than MAX_ENTRIES, as the first does near the ceiling
+    (minimizer hashes crowd the low end), or more than the self-join takes
+    (SAFE_JOIN_ENTRIES usable entries: in a crowded range the sequencing
+    errors' singleton hashes collide, so nearly every entry is usable);
+    then they are cut even by the build's hash histogram
+    (balanced_splits), into as many as keep each part within both.  Where
+    the ranges cut changes no answer.  Each part keeps its own capacity limits, and any part's
+    decline declines the whole.  Same contract as DeviceIndex
+    (n_entries, has_flags, occurrence_for, distance_join, join_foreign,
+    to_host)."""
+
+    joins_foreign = True
 
     def __init__(self, parts, k, w, has_flags):
         self.parts = parts
@@ -429,11 +657,11 @@ class PartitionedIndex:
     def build(cls, readset, ids, k, w, minhash, with_flags, device, n_parts):
         if n_parts < 2:
             return None
-        splits = range_splits(n_parts)
-        cols = _build_columns(readset, ids, k, w, minhash, with_flags, device, splits)
+        cols = _build_columns(readset, ids, k, w, minhash, with_flags, device,
+                              range_splits(n_parts), balance=True)
         if cols is None:
             return None
-        key, rid, packed, need_flags, counts = cols
+        key, rid, packed, need_flags, counts, splits = cols
         cuts = range_cuts(key, splits)
         parts = [
             DeviceIndex(key[a:b], rid[a:b], packed[a:b], need_flags, k, w, _capacity(c))
@@ -457,7 +685,8 @@ class PartitionedIndex:
                       filtered_out: dict | None = None, chain_k: int | None = None):
         """DeviceIndex.distance_join over the parts: each joins on its own
         device, and their match columns meet on the first part's device,
-        concatenated, to be chained or returned once."""
+        concatenated a column at a time (each part's copy freed as its
+        column is joined), to be chained or returned once."""
         dev = self.parts[0].device
         parts = []
         for p in self.parts:
@@ -465,7 +694,21 @@ class PartitionedIndex:
             if cols is None:
                 return None
             parts.append([c.to(dev, non_blocking=dev.type == "cuda") for c in cols])
-        return _finish_join(tuple(torch.cat(c) for c in zip(*parts)), chain_k)
+        cols = []
+        for j in range(len(parts[0])):
+            cols.append(torch.cat([c[j] for c in parts]))
+            for c in parts:
+                c[j] = None
+        del parts
+        return _finish_join(tuple(cols), chain_k)
+
+    def join_foreign(self, readset, ids, occurrence: int, minhash: bool, avoid_equal: bool,
+                     avoid_symmetric: bool, filtered_out: dict | None = None,
+                     chain_k: int | None = None):
+        """foreign_join over the parts (one device): a query hash lies in
+        one part's range, so each entry's run is that part's."""
+        return foreign_join(self.parts, readset, ids, self.k, self.w, occurrence, minhash,
+                            avoid_equal, avoid_symmetric, filtered_out, chain_k)
 
     def to_host(self):
         """The parts' host columns concatenated (the ranges ascend, so the

@@ -18,7 +18,10 @@ path cannot take an input (a capacity limit), the engine says so on
 stderr, counts it in `MinimizerIndex.host_declines` and takes the next
 path: the single device index after the sharded one, the host index after
 that, whose sketch of DEVICE_MIN_BASES or more still runs on the engine's
-device (K1, as raven_tpu's RAVEN_TPU_DEVICE_SKETCH=1 route does).
+device (K1, as raven_tpu's RAVEN_TPU_DEVICE_SKETCH=1 route does).  A
+device index maps on its device the queried reads outside its build set
+too (an earlier index batch's, in the construct's later batches), where
+raven_tpu maps them on the host (map_many).
 
 API mirrors the reference engine:
   minimize(readset, ids, minhash)  ~ ram Minimize  (construct.cc:42)
@@ -44,6 +47,7 @@ from raven_tpu_torch.overlap.device_index import (
 from raven_tpu_torch.overlap.minimizer import minimize_read, minimize_reads
 from raven_tpu_torch.parallel.mesh import chosen_mesh
 from raven_tpu_torch.overlap.types import OVERLAP_DTYPE
+from raven_tpu_torch.utils import trace
 
 
 def _sorted_unique(h: np.ndarray):
@@ -97,6 +101,9 @@ class MinimizerIndex:
     # device-path declines to the host path, over every engine in the
     # process (a run reads it to show the device path took everything)
     host_declines = 0
+    # map_many calls that took the host route, over every engine in the
+    # process (0 when a run's maps all ran on the device)
+    host_maps = 0
 
     def __init__(self, k: int = 15, w: int = 5, device=None):
         if not 1 <= k <= 31:
@@ -217,7 +224,8 @@ class MinimizerIndex:
 
     def _device_build(self, readset, ids, minhash, with_query_flags) -> bool:
         """Build the index device-resident: sharded over a mesh when there
-        is one, else partitioned above MAX_ENTRIES entries; returns False
+        is one, else partitioned above MAX_ENTRIES estimated entries (or
+        past one DeviceIndex's actual entries); returns False
         to fall through to the host build (inputs under DEVICE_MIN_BASES,
         or a decline, and every input when DEVICE_MAP is off)."""
         if ids.size == 0 or not self.DEVICE_MAP:
@@ -257,6 +265,13 @@ class MinimizerIndex:
                 readset, ids, self.k, self.w, minhash, with_query_flags,
                 self.device,
             )
+            if self._device is None:
+                # the estimate (~1/3 an entry a base) fell short of the
+                # sketch's entries: the partitioned index takes them
+                self._device = PartitionedIndex.build(
+                    readset, ids, self.k, self.w, minhash, with_query_flags,
+                    self.device, 2,
+                )
         if self._device is None:
             self._decline(
                 "a sketch chunk or the entry count exceeds the device "
@@ -268,8 +283,7 @@ class MinimizerIndex:
 
     def _drop_host_columns(self) -> None:
         """The index is on the device: its host columns are materialized
-        lazily (only non-self-join callers need them; the construct
-        pipeline never does)."""
+        lazily (only the host route and per-read map() need them)."""
         self._hashes = None
         self._ids = None
         self._pos = None
@@ -277,12 +291,13 @@ class MinimizerIndex:
         self._qflag = None
 
     def _materialize_host(self) -> None:
-        """Transfer the device-built index into the host columns (fallback
-        for generic map()/lookup callers).
+        """Transfer the device-built index into the host columns, for the
+        host route of map_many and for per-read map().
 
-        The construct pipeline uses map_many/distance_join and never lands
-        here; a generic per-read map() call forfeits the device-resident
-        build, so the (one-time) transfer is logged."""
+        The construct pipeline lands here only when map_many declines to
+        the host route (a capacity limit, said on stderr, or a sharded
+        index's foreign queries); a device index's own and foreign queries
+        map on the device.  The (one-time) transfer is logged."""
         if self._device is None or self._hashes is not None:
             return
         print(
@@ -350,59 +365,91 @@ class MinimizerIndex:
             return False
         return True
 
+    def _map_many_device(
+        self, readset, ids, avoid_equal, avoid_symmetric, minhash,
+        filtered_out, anchors_out, out,
+    ):
+        """The device route: the queried reads in the device index's build
+        set by its self-join, the others (foreign queries: an earlier
+        index batch's reads) by its foreign join (device_index.foreign_join),
+        each read's overlaps from one of them.  Fills and returns `out`, or
+        None for the host route: no device index, a call the self-join
+        cannot take, a sharded index's foreign queries, or a capacity
+        decline (said and counted)."""
+        if self._device is None or not self._selfjoin_enabled:
+            return None
+        b = self._build_sorted
+        inside = b[np.minimum(np.searchsorted(b, ids), b.size - 1)] == ids
+        own, foreign = ids[inside], ids[~inside]
+        if own.size and not self._selfjoin_compatible(
+            own, avoid_equal, avoid_symmetric, minhash
+        ):
+            return None
+        if foreign.size and not getattr(self._device, "joins_foreign", False):
+            return None
+        # chaining runs on the device too unless the caller needs the
+        # per-overlap anchors or DEVICE_CHAIN is off (the matches then
+        # never leave the device)
+        chain_k = self.k if anchors_out is None and self.DEVICE_CHAIN else None
+        occ = int(self._occurrence)
+        collect = {} if filtered_out is not None else None
+        found = []
+        if own.size:
+            batch = np.zeros(int(b[-1]) + 1, dtype=bool)
+            batch[own] = True
+            matches = self._device.distance_join(
+                occ, batch, need_flags=(minhash and not self._minhash),
+                filtered_out=collect, chain_k=chain_k,
+            )
+            if matches is None:
+                self._decline(
+                    f"occurrence {occ} or the join size exceeds the device "
+                    "join's capacity"
+                )
+                return None
+            found.append(matches)
+        if foreign.size:
+            found.append(self._device.join_foreign(
+                readset, foreign, occ, minhash, avoid_equal, avoid_symmetric,
+                collect, chain_k,
+            ))
+        if collect:
+            for rid, plist in collect.items():
+                plist.sort()  # match the host route's position order
+                filtered_out.setdefault(rid, []).extend(plist)
+        if chain_k is not None:
+            for matches in found:
+                out.update(matches)
+            return out
+        from raven_tpu_torch.overlap import selfjoin
+
+        cols = tuple(np.concatenate(c) for c in zip(*found))
+        selfjoin.chain_per_read(*cols, self.k, out, anchors_out=anchors_out)
+        return out
+
     def _map_many_selfjoin(
         self, ids, minhash, filtered_out, anchors_out, out
     ):
-        """Distance-join over the sorted index (host or device); fills and
-        returns `out`, or None to fall back to the generic path."""
+        """Distance-join over the sorted host columns; fills and returns
+        `out`, or None to fall back to the generic lookup."""
         from raven_tpu_torch.overlap import selfjoin
 
         batch = np.zeros(int(self._build_sorted[-1]) + 1, dtype=bool)
         batch[np.asarray(ids, np.int64)] = True
+        qflag = self._qflag if (minhash and not self._minhash) else None
+        if minhash and not self._minhash and qflag is None:
+            return None
         collect = {} if filtered_out is not None else None
-        matches = None
-        if self._device is not None and self._hashes is None:
-            # chaining runs on device too unless the caller needs the
-            # per-overlap anchors or DEVICE_CHAIN is off (the matches then
-            # never leave the device)
-            chain_k = self.k if anchors_out is None and self.DEVICE_CHAIN else None
-            matches = self._device.distance_join(
-                int(self._occurrence),
-                batch,
-                need_flags=(minhash and not self._minhash),
-                filtered_out=collect,
-                chain_k=chain_k,
-            )
-            if isinstance(matches, dict):  # chained on device
-                if collect:
-                    for rid, plist in collect.items():
-                        plist.sort()
-                        filtered_out.setdefault(rid, []).extend(plist)
-                out.update(matches)
-                return out
-            if matches is None:  # capacity decline: host self-join instead
-                self._decline(
-                    f"occurrence {int(self._occurrence)} or the join size "
-                    "exceeds the device join's capacity"
-                )
-                self._materialize_host()
-                collect = {} if filtered_out is not None else None
-        if matches is None:
-            qflag = (
-                self._qflag if (minhash and not self._minhash) else None
-            )
-            if minhash and not self._minhash and qflag is None:
-                return None
-            matches = selfjoin.distance_join(
-                self._hashes,
-                self._ids,
-                self._pos,
-                self._strand,
-                qflag,
-                int(self._occurrence),
-                batch,
-                filtered_out=collect,
-            )
+        matches = selfjoin.distance_join(
+            self._hashes,
+            self._ids,
+            self._pos,
+            self._strand,
+            qflag,
+            int(self._occurrence),
+            batch,
+            filtered_out=collect,
+        )
         if collect:
             for rid, plist in collect.items():
                 plist.sort()  # match the generic path's position order
@@ -501,11 +548,19 @@ class MinimizerIndex:
         """Map many reads in one vectorized pass (same results as per-read
         map(), order included).
 
-        The sketches are computed in one (process-parallel) sweep, the index
-        join (searchsorted + expansion + symmetric filtering) runs over the
-        whole batch at once, and only the chaining dispatches per read
-        (native C++).  filtered_out: {read_id: [kmer positions]} collecting
-        too-frequent minimizers per read.
+        A device index takes the device route (`_map_many_device`): the
+        queried reads in its build set through its self-join, the others
+        (an earlier index batch's reads, in the construct's later batches)
+        through its foreign join, both chained on the device.  The host
+        route serves the host index (inputs under DEVICE_MIN_BASES, every
+        input with DEVICE_MAP off), the sharded index's foreign queries
+        and capacity declines: the self-join over the sorted host columns
+        when every read is in the build set, else the generic lookup (the
+        sketches in one process-parallel sweep, one searchsorted join and
+        expansion over the whole batch, native per-read chaining); each
+        such call counts in `MinimizerIndex.host_maps` and is the span
+        "index.host_map".  filtered_out: {read_id: [kmer positions]}
+        collecting too-frequent minimizers per read.
         """
         ids = np.asarray(ids, dtype=np.int64)
         out: dict[int, np.ndarray] = {
@@ -514,7 +569,26 @@ class MinimizerIndex:
         if ids.size == 0 or self.num_minimizers == 0:
             return out
 
+        done = self._map_many_device(
+            readset, ids, avoid_equal, avoid_symmetric, minhash,
+            filtered_out, anchors_out, out,
+        )
+        if done is not None:
+            return done
+        type(self).host_maps += 1
+        with trace.span("index.host_map", reads=int(ids.size)):
+            return self._map_many_host(
+                readset, ids, avoid_equal, avoid_symmetric, minhash,
+                filtered_out, anchors_out, out,
+            )
+
+    def _map_many_host(
+        self, readset, ids, avoid_equal, avoid_symmetric, minhash,
+        filtered_out, anchors_out, out,
+    ):
+        """map_many's host route (see there)."""
         if self._selfjoin_compatible(ids, avoid_equal, avoid_symmetric, minhash):
+            self._materialize_host()
             done = self._map_many_selfjoin(
                 ids, minhash, filtered_out, anchors_out, out
             )

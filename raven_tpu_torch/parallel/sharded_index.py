@@ -147,7 +147,10 @@ class ShardedIndex(PartitionedIndex):
     device d; across processes, `parts` holds this rank's devices' parts
     and `n_entries` counts every rank's (see the module docstring).  Same
     contract as DeviceIndex: n_entries, has_flags, occurrence_for,
-    distance_join, to_host."""
+    distance_join, to_host; reads outside the build set are mapped on the
+    host (its parts span devices and processes)."""
+
+    joins_foreign = False
 
     def __init__(self, mesh, parts, k, w, has_flags, n_entries=None):
         super().__init__(parts, k, w, has_flags)
